@@ -7,30 +7,52 @@ of JAX and nothing of the JAX package ``repro``).  Phases, each printing
 what it found; any failure exits non-zero and no phase's failure is
 caught:
 
-1. card   — the card's name and power limit, from ``nvidia-smi``;
-2. build  — compile the router-arbitration kernel from
-   ``src/repro_torch/kernels/csrc/`` with ``nvcc`` for ``sm_90a``;
-3. kernel — the kernel against its plain PyTorch version on the card,
-   bit-exact on seeded cases (n = 1..400, 127/128/129 and the 208x208
-   mesh's 43,264 routers); both timed at 43,264 (device time from
-   ``torch.profiler``, and per call with CUDA events);
-4. wedge  — the former S14 wedge (16x16, distributed directory,
+1. card      — the card's name and power limit, from ``nvidia-smi``;
+2. build     — compile both kernels from ``src/repro_torch/kernels/csrc/``
+   with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, started
+   together; prints ptxas's register/spill report;
+3. kernel    — K1 (router arbitration) against its plain PyTorch version
+   on the card, bit-exact on seeded cases (n = 1..400, 127/128/129 and
+   the 208x208 mesh's 43,264 routers); both timed at 43,264 (device time
+   from ``torch.profiler``, and per call with CUDA events);
+4. kernel-K2 — K2 (flash attention) against ``attention_ref`` at the
+   four ``tests/test_kernels.py`` shapes, a grouped-query case and the
+   tinyllama-1.1b prefill shape (4, 32, 2048, 64) bf16 causal, within
+   1e-5 (float32) and 5e-2 (bfloat16); at the prefill shape the kernel,
+   the plain version and ``scaled_dot_product_attention`` (the library
+   yardstick, never called by the port) are timed;
+5. wedge     — the former S14 wedge (16x16, distributed directory,
    ``app_trace_loop(cfg, "matmul", 20, 0)``) run to completion on the
    card through ``run``; its statistics must equal the port's own CPU run
-   (plain arbitration), and the kernel must have launched;
-5. paper  — the paper's 208x208 mesh, packed state, 32 cycles, exactly as
-   ``benchmarks/paper_scale.py --smoke`` runs it; its statistics must
+   (plain arbitration), and K1 must have launched;
+6. paper     — the paper's 208x208 mesh, packed state, 32 cycles, exactly
+   as ``benchmarks/paper_scale.py --smoke`` runs it; its statistics must
    equal ``BENCH_paper_scale.json`` ``raw.stats`` (the JAX package's
    output, read as data); then a longer run at the same mesh is timed,
-   and a window of it profiled (device busy share, launches a cycle).
+   and a window of it profiled (device busy share, launches a cycle);
+7. lm-prefill — tinyllama-1.1b at full width (22 layers, seeded random
+   parameters from the port's own init, float32, bf16 compute), the
+   prefill step at B=4, S=2048: K2 launches exactly 22 times, the logits
+   are finite, and the last-token logits agree with the same forward
+   forced through the einsum route (bf16 and float32 compute); timed and
+   profiled;
+8. lm-decode — a 128-token prompt fed one token at a time through
+   ``decode_step`` (no K2 launch) tracks the cache-free forward at S=128
+   (22 K2 launches);
+9. lm-serve  — the continuous-batching ``Server`` answers 8 seeded
+   requests with 4 slots, ``cache_len=256`` and ``max_new=16``, as
+   ``python -m repro_torch.launch.serve`` does by default; timed, and
+   at reduced width its tokens equal the CPU run's.
 
 The two lines before the last are the card (as ``nvidia-smi`` gives it)
-and one JSON object with the kernel's numbers; the last line is
+and one JSON object with both kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU it exits non-zero and
 prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
 import os
 import subprocess
@@ -44,6 +66,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet), the
 #: table's rate for scalar ALU work; the kernel's work is scalar int32
 SCALAR_OPS_PER_S = 67e12
+#: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet): the least
+#: time for attention's two products in bf16
+BF16_FLOP_PER_S = 989e12
 #: bytes the arbitration moves per router: age, dc, dr as int32 and
 #: valid, we as bytes for 5 candidates plus 4 port bytes in; assigned as
 #: int32 and deflect as bytes for 5 candidates out
@@ -57,6 +82,38 @@ ARB_OPS_PER_ROUTER = 5 * 30 + 5 * 75
 
 PAPER_CYCLES = 32
 TIMED_CYCLES = 256
+
+#: K2's shapes: (B, H, KV, S, D, dtype, causal); the first four are
+#: tests/test_kernels.py's, then a grouped-query case, then the
+#: tinyllama-1.1b prefill (B 4, S 2048) that the main path gives it
+K2_SHAPES = [(1, 2, 2, 256, 64, "float32", True),
+             (2, 1, 1, 128, 128, "bfloat16", True),
+             (1, 4, 4, 384, 64, "float32", False),
+             (2, 2, 2, 512, 32, "bfloat16", True),
+             (2, 8, 2, 256, 64, "float32", True)]
+PREFILL_SHAPE = (4, 32, 4, 2048, 64, "bfloat16", True)
+#: test_kernels.py's tolerances of the flash kernel against attention_ref
+K2_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+
+LM_ARCH = "tinyllama-1.1b"
+PREFILL_BATCH, PREFILL_SEQ = 4, 2048
+#: tolerances on logits (magnitude up to ~4) between two routes through
+#: the same full-width forward: max and mean |difference|.  In bf16 two
+#: summation orders of the same attention flip bf16 roundings that carry
+#: through 22 layers: on the CPU at full width the port's einsum and
+#: blocked attention routes differ by max 0.090, mean 0.0155 in the
+#: last-token logits (B 4, S 512), and decode against the forward at
+#: S 128 by max 0.107, mean 0.0148, with greedy tokens equal on 0.945 of
+#: the positions.  The bf16 tolerances are about three times that spread.
+#: In float32 the same arithmetic in another order: 1e-3 and 1e-4.
+ROUTE_MAX = {"bfloat16": 0.25, "float32": 1e-3}
+ROUTE_MEAN = {"bfloat16": 0.05, "float32": 1e-4}
+DECODE_PROMPT = 128
+#: decode vs cache-free forward: greedy tokens equal on at least this
+#: share of the positions (the criterion of
+#: tests/test_archs.py::test_decode_matches_forward)
+DECODE_AGREE = 0.9
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_CACHE, SERVE_NEW = 8, 4, 256, 16
 
 
 def fail(msg: str) -> None:
@@ -288,6 +345,338 @@ def phase_paper(dev) -> int:
     return launches
 
 
+def phase_build() -> None:
+    """Build both kernels at once: one nvcc per source, started together."""
+    from repro_torch.kernels.build import build
+    names = ("router_arbitrate", "flash_attention")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {n: pool.submit(build, n) for n in names}
+    for n in names:
+        built = futures[n].result()       # re-raises a failed build
+        print(f"build: {built.path.name} in {built.seconds:.1f} s")
+        for line in built.log.strip().splitlines():
+            print(f"build: {line}")
+    print(f"build: both kernels in {time.perf_counter() - t0:.1f} s")
+
+
+def k2_case(shape, dev, seed: int = 0):
+    """Seeded (q, k, v) on the card for a K2 shape: with numpy, as the
+    tests make them, at the small shapes; on the card at the prefill
+    shape."""
+    import numpy as np
+    import torch
+    b, h, kv, s, d, dt, _ = shape
+    dtype = getattr(torch, dt)
+    shapes = ((b, h, s, d), (b, kv, s, d), (b, kv, s, d))
+    if shape == PREFILL_SHAPE:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(sh, generator=gen, device=dev).to(dtype)
+                for sh in shapes]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(sh)).to(dev, dtype)
+            for sh in shapes]
+
+
+def phase_kernel_k2(dev):
+    """K2 against attention_ref; returns the kernel's record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import attention_ref
+
+    for shape in K2_SHAPES + [PREFILL_SHAPE]:
+        b, h, kv, s, d, dt, causal = shape
+        q, k, v = k2_case(shape, dev)
+        got = flash_attention_cuda(q, k, v, causal=causal)
+        want = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got.float()).all()):
+            fail(f"K2 output not finite at {shape}")
+        err = float((got.float() - want.float()).abs().max())
+        if not err < K2_TOL[dt]:
+            fail(f"K2 disagrees with attention_ref at {shape}: max abs err "
+                 f"{err} (tolerance {K2_TOL[dt]})")
+        print(f"kernel-K2: (B, H, KV, S, D) = {(b, h, kv, s, d)} {dt} "
+              f"causal={causal}: max |err| vs attention_ref {err:.3e} "
+              f"(tolerance {K2_TOL[dt]})")
+    prefill_err = err
+
+    b, h, kv, s, d, dt, causal = PREFILL_SHAPE
+    q, k, v = k2_case(PREFILL_SHAPE, dev, seed=1)
+    kernel = lambda: flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: attention_ref(q, k, v, causal=True)          # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(           # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    lib_err = float((library().float() - plain().float()).abs().max())
+    call_ms = event_ms(kernel, 20)
+    plain_call_ms = event_ms(plain, 3)
+    lib_call_ms = event_ms(library, 20)
+    iters = 10
+    _, kern = device_profile(kernel, iters)
+    _, pl = device_profile(plain, 3)
+    _, lib = device_profile(library, iters)
+    mine = {n: v for n, v in kern.items() if "flash_attention" in n}
+    if mine and pl and lib:
+        ms = sum(v[0] for v in mine.values()) / iters
+        plain_ms = sum(v[0] for v in pl.values()) / 3
+        lib_ms = sum(v[0] for v in lib.values()) / iters
+    else:
+        print("kernel-K2: torch.profiler recorded no device time; "
+              "reporting the CUDA-event times")
+        ms, plain_ms, lib_ms = call_ms, plain_call_ms, lib_call_ms
+    # causal S == T: query s sees s + 1 keys; two products of 2*D FLOP a
+    # (query, key) pair; each input read once, the output written once
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flop = 4 * d * pairs * b * h
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flop_ms = flop / BF16_FLOP_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel-K2: prefill shape device time (torch.profiler): kernel "
+          f"{ms:.6f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain_ms:.6f} ms ({len(pl)} kernels), "
+          f"scaled_dot_product_attention {lib_ms:.6f} ms (max |diff| vs "
+          f"plain {lib_err:.3e}); per call on the card's timeline (CUDA "
+          f"events): kernel {call_ms:.6f} ms, plain {plain_call_ms:.6f} "
+          f"ms, library {lib_call_ms:.6f} ms; bound "
+          f"{max(flop_ms, bytes_ms):.6f} ms (operations {flop_ms:.6f}: "
+          f"{flop:.4e} FLOP at 989 TFLOP/s bf16; bytes {bytes_ms:.6f}: "
+          f"{nbytes} B at 3.35 TB/s)")
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:22",
+        "launches": None,
+        "max_abs_err": prefill_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(flop_ms, bytes_ms),
+        "bound_by": "operations" if flop_ms >= bytes_ms else "bytes",
+        "library_ms": lib_ms,
+    }
+
+
+def _route_err(a, b, dt: str, what: str):
+    """(max, mean) |a - b| over logits; fails past ROUTE_MAX/ROUTE_MEAN."""
+    d = (a.float() - b.float()).abs()
+    err, mean = float(d.max()), float(d.mean())
+    if not (err < ROUTE_MAX[dt] and mean < ROUTE_MEAN[dt]):
+        fail(f"{what}, {dt}: max |err| {err}, mean {mean} (tolerances "
+             f"{ROUTE_MAX[dt]}, {ROUTE_MEAN[dt]})")
+    return err, mean
+
+
+def phase_lm_prefill(dev):
+    """Full-width tinyllama-1.1b prefill; returns (cfg, params, K2
+    launches in the prefill step)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import api, common
+    from repro_torch.train import step
+
+    # float32 products in float32, and split-K sums of bf16 products in
+    # float32: the route comparisons below then see attention's order only
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = registry.get(LM_ARCH)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, 0)                  # default: cuda
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for sub in (params, params["layers"]["attn"],
+                                         params["layers"]["mlp"])
+                   for t in sub.values() if isinstance(t, torch.Tensor))
+    if n_params != cfg.n_params():
+        fail(f"lm-prefill: {n_params} parameters, config says "
+             f"{cfg.n_params()}")
+    batch = api.make_inputs(cfg, "prefill", PREFILL_BATCH, PREFILL_SEQ,
+                            np.random.default_rng(0))
+    prefill = step.make_prefill_step(cfg)
+
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    last = prefill(params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = LAUNCHES.n
+    if launches != cfg.n_layers:
+        fail(f"lm-prefill: K2 launched {launches} times, expected "
+             f"{cfg.n_layers} (one a layer)")
+    if last.shape != (PREFILL_BATCH, cfg.vocab) or \
+            not bool(torch.isfinite(last.float()).all()):
+        fail(f"lm-prefill: last-token logits {tuple(last.shape)} not "
+             f"finite or of the wrong shape")
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        prefill(params, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    with common.einsum_route():
+        ref = prefill(params, batch)
+    err, mean = _route_err(last, ref, "bfloat16",
+                           "lm-prefill: kernel route vs einsum route")
+    agree = float((last.float().argmax(-1) == ref.float().argmax(-1))
+                  .float().mean())
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prefill32 = step.make_prefill_step(cfg32)
+    last32 = prefill32(params, batch)
+    with common.einsum_route():
+        ref32 = prefill32(params, batch)
+    err32, mean32 = _route_err(last32, ref32, "float32",
+                               "lm-prefill: kernel route vs einsum route")
+    print(f"lm-prefill: {LM_ARCH} full width ({cfg.n_layers} layers, "
+          f"{n_params} params, init {init_s:.3f} s), B={PREFILL_BATCH} "
+          f"S={PREFILL_SEQ} bf16: K2 launches {launches}; first call "
+          f"{first_s:.3f} s; {wall_ms:.3f} ms per prefill "
+          f"({PREFILL_BATCH * PREFILL_SEQ / wall_ms * 1e3:.1f} tok/s); "
+          f"last-token logits max |logit| {float(last.float().abs().max()):.3f}, "
+          f"vs einsum route max |err| {err:.4e}, mean {mean:.4e} "
+          f"(tolerances {ROUTE_MAX['bfloat16']}, "
+          f"{ROUTE_MEAN['bfloat16']}), argmax agree {agree:.3f}; float32 "
+          f"compute: max |err| {err32:.4e}, mean {mean32:.4e} "
+          f"(tolerances {ROUTE_MAX['float32']}, {ROUTE_MEAN['float32']})")
+
+    wall_p, kern = device_profile(lambda: prefill(params, batch), 1)
+    busy = sum(v[0] for v in kern.values())
+    k2 = sum(v[0] for n, v in kern.items() if "flash_attention" in n)
+    print(f"lm-prefill profile: wall {wall_p:.3f} ms (under the profiler), "
+          f"device busy {busy:.3f} ms (idle share "
+          f"{1 - busy / wall_p:.4f}), "
+          f"{sum(v[1] for v in kern.values())} kernel launches, K2 "
+          f"{k2:.3f} ms ({k2 / max(busy, 1e-9):.3f} of device time)")
+    for name, (ms, count) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"lm-prefill profile:   {ms:.3f} ms  {count}x  {name[:90]}")
+    return cfg, params, launches
+
+
+def phase_lm_decode(dev, cfg, params) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.models import api
+
+    b = PREFILL_BATCH
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (b, DECODE_PROMPT)), dtype=torch.int32, device=dev)
+    LAUNCHES.reset()
+    full, _ = api.forward_logits(cfg, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    fwd_launches = LAUNCHES.n
+    if fwd_launches != cfg.n_layers:
+        fail(f"lm-decode: the S={DECODE_PROMPT} forward launched K2 "
+             f"{fwd_launches} times, expected {cfg.n_layers}")
+    cache = api.init_cache(cfg, b, DECODE_PROMPT)
+    LAUNCHES.reset()
+    outs = []
+    t0 = time.perf_counter()
+    for t in range(DECODE_PROMPT):
+        lg, cache = api.decode_step(cfg, params, cache, tokens[:, t:t + 1])
+        outs.append(lg)
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    if LAUNCHES.n != 0:
+        fail(f"lm-decode: decode steps launched K2 {LAUNCHES.n} times")
+    got = torch.stack(outs, 1)
+    if not bool(torch.isfinite(got.float()).all()):
+        fail("lm-decode: logits not finite")
+    last_err, last_mean = _route_err(got[:, -1], full[:, -1], "bfloat16",
+                                     "lm-decode: last logits vs forward")
+    agree = float((got.float().argmax(-1) == full.float().argmax(-1))
+                  .float().mean())
+    if agree < DECODE_AGREE:
+        fail(f"lm-decode: greedy tokens equal the forward's on {agree} of "
+             f"the positions (at least {DECODE_AGREE})")
+    print(f"lm-decode: {DECODE_PROMPT} tokens x B={b} one at a time "
+          f"through decode_step (K2 launches 0) vs the cache-free forward "
+          f"(K2 launches {fwd_launches}): last logits max |err| "
+          f"{last_err:.4e}, mean {last_mean:.4e}, greedy agreement "
+          f"{agree:.4f}; "
+          f"{dec_s / DECODE_PROMPT * 1e3:.3f} ms per step "
+          f"({b * DECODE_PROMPT / dec_s:.1f} tok/s)")
+    cache = api.init_cache(cfg, b, SERVE_CACHE)
+    steps = 8
+    state = {"c": cache}
+
+    def window():
+        for t in range(steps):
+            _, state["c"] = api.decode_step(cfg, params, state["c"],
+                                            tokens[:, t:t + 1])
+    wall_ms, kern = device_profile(window, 1)
+    busy = sum(v[0] for v in kern.values())
+    print(f"lm-decode profile: {steps} steps, cache_len {SERVE_CACHE}: "
+          f"wall {wall_ms / steps:.3f} ms/step (under the profiler), "
+          f"device busy {busy / steps:.3f} ms/step (idle share "
+          f"{1 - busy / wall_ms:.4f}), "
+          f"{sum(v[1] for v in kern.values()) / steps:.1f} launches/step")
+    for name, (ms, count) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"lm-decode profile:   {ms / steps:.3f} ms/step  "
+              f"{count / steps:.1f}/step  {name[:90]}")
+
+
+def _serve(cfg, params, device, n, slots, cache_len, max_new, seed=0):
+    """Requests seeded as ``repro_torch.launch.serve`` makes them, served
+    to the end; returns (finished requests, seconds, batched decode
+    steps)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.server import Request, Server
+    server = Server(cfg, params, slots=slots, cache_len=cache_len,
+                    seed=seed, device=device)
+    rng = np.random.default_rng(seed)
+    for rid in range(n):
+        prompt = rng.integers(0, cfg.vocab,
+                              size=int(rng.integers(2, 9))).astype(np.int32)
+        server.submit(Request(rid=rid, prompt=prompt, max_new=max_new))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = server.run_until_drained()
+    return done, time.perf_counter() - t0, int(server.cache["idx"])
+
+
+def phase_lm_serve(dev, cfg, params) -> None:
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.models import api
+
+    done, secs, steps = _serve(cfg, params, dev, SERVE_REQUESTS,
+                               SERVE_SLOTS, SERVE_CACHE, SERVE_NEW)
+    if len(done) != SERVE_REQUESTS or any(
+            len(r.out) != SERVE_NEW or not all(0 <= t < cfg.vocab
+                                               for t in r.out)
+            for r in done):
+        fail(f"lm-serve: {len(done)} of {SERVE_REQUESTS} requests done, "
+             f"tokens {[r.out for r in done]}")
+    toks = sum(len(r.out) for r in done)
+    for r in sorted(done, key=lambda r: r.rid):
+        print(f"lm-serve: request {r.rid}: prompt {r.prompt.tolist()} -> "
+              f"{r.out}")
+    print(f"lm-serve: {LM_ARCH} full width, {len(done)} requests / {toks} "
+          f"tokens in {secs:.3f} s ({toks / secs:.1f} tok/s) with "
+          f"{SERVE_SLOTS} slots, cache_len {SERVE_CACHE}: {steps} batched "
+          f"decode steps, {secs / steps * 1e3:.3f} ms per step")
+
+    # at reduced width the card's tokens equal the CPU's
+    small = dataclasses.replace(registry.reduced(LM_ARCH),
+                                compute_dtype="float32")
+    p_cpu = api.init_params(small, 0, device="cpu")
+    p_card = convert.params_from_numpy(convert.params_to_numpy(p_cpu), dev,
+                                       small)
+    on_card, _, _ = _serve(small, p_card, dev, 5, 2, 64, 6)
+    on_cpu, _, _ = _serve(small, p_cpu, "cpu", 5, 2, 64, 6)
+    if [r.out for r in on_card] != [r.out for r in on_cpu]:
+        fail(f"lm-serve: reduced width, card tokens "
+             f"{[r.out for r in on_card]} != CPU tokens "
+             f"{[r.out for r in on_cpu]}")
+    print(f"lm-serve: reduced width, float32: the card's tokens equal the "
+          f"CPU's for all {len(on_card)} requests")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -296,24 +685,23 @@ def main() -> None:
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         fail(f"{src}/repro_torch not found: run from a checkout of the repo")
     sys.path.insert(0, src)
-    from repro_torch.kernels.build import build
 
     dev = torch.device("cuda:0")
     card = card_line()
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})")
 
-    built = build("router_arbitrate")
-    print(f"build: {built.path.name} in {built.seconds:.1f} s")
-    for line in built.log.strip().splitlines():
-        print(f"build: {line}")
-
-    rec = phase_kernel(dev)
+    phase_build()
+    rec_k1 = phase_kernel(dev)
+    rec_k2 = phase_kernel_k2(dev)
     phase_wedge(dev)
-    rec["launches"] = phase_paper(dev)
+    rec_k1["launches"] = phase_paper(dev)
+    cfg, params, rec_k2["launches"] = phase_lm_prefill(dev)
+    phase_lm_decode(dev, cfg, params)
+    phase_lm_serve(dev, cfg, params)
 
     print(card)
-    print(json.dumps({"kernels": [rec]}))
+    print(json.dumps({"kernels": [rec_k1, rec_k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,18 +1,26 @@
-"""Carry simulator state across between the JAX package and the port.
+"""Carry simulator state and LM parameters and caches across between the
+JAX package and the port.
 
-A state crosses as a mapping of leaf name to numpy array, so neither side
-imports the other: ``{k: np.asarray(v) for k, v in jax_state._asdict().items()}``
-on the JAX side, :func:`state_from_numpy` here, and back with
-:func:`state_to_numpy`.  Every leaf keeps its shape, dtype and values.
+A simulator state crosses as a mapping of leaf name to numpy array, so
+neither side imports the other:
+``{k: np.asarray(v) for k, v in jax_state._asdict().items()}`` on the JAX
+side, :func:`state_from_numpy` here, and back with :func:`state_to_numpy`.
+LM parameters and decode caches cross as the nested dict of the JAX
+package's tree with every leaf converted by ``np.asarray``
+(:func:`params_from_numpy`, :func:`cache_from_numpy` and back).  Every
+leaf keeps its shape, dtype and values; bfloat16 leaves are numpy arrays
+of ``ml_dtypes.bfloat16``, as JAX gives them.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from .core.state import SimState
+from .models.api import abstract_params, init_cache
+from .models.config import ModelConfig
 
 
 def state_from_numpy(leaves: Mapping[str, np.ndarray], device) -> SimState:
@@ -30,3 +38,79 @@ def state_from_numpy(leaves: Mapping[str, np.ndarray], device) -> SimState:
 def state_to_numpy(s: SimState) -> Dict[str, np.ndarray]:
     """Per-leaf numpy arrays (on the host) from a port ``SimState``."""
     return {k: v.detach().cpu().numpy() for k, v in s._asdict().items()}
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.array(a, order="C")          # a writable copy of its own
+    if a.dtype.name == "bfloat16":      # ml_dtypes, as JAX hands it out
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes   # only where a bfloat16 leaf leaves the port
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _tree_from_numpy(tree: Mapping[str, Any], like: Mapping[str, Any],
+                     device, path: str = "") -> Dict[str, Any]:
+    """``tree``'s leaves as tensors on ``device``, checked leaf by leaf
+    against the shape-only tree ``like`` (keys, shapes and dtypes)."""
+    missing = set(like) - set(tree)
+    extra = set(tree) - set(like)
+    if missing or extra:
+        raise ValueError(f"tree{path} does not match: missing "
+                         f"{sorted(missing)}, unexpected {sorted(extra)}")
+    out = {}
+    for k, want in like.items():
+        if isinstance(want, Mapping):
+            if not isinstance(tree[k], Mapping):
+                raise ValueError(f"tree{path}[{k!r}] should be a subtree")
+            out[k] = _tree_from_numpy(tree[k], want, device,
+                                      f"{path}[{k!r}]")
+            continue
+        t = _tensor_from_numpy(tree[k], device)
+        if tuple(t.shape) != tuple(want.shape) or t.dtype != want.dtype:
+            raise ValueError(f"tree{path}[{k!r}] is {t.dtype} "
+                             f"{tuple(t.shape)}, expected {want.dtype} "
+                             f"{tuple(want.shape)}")
+        out[k] = t
+    return out
+
+
+def _tree_to_numpy(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    return {k: _tree_to_numpy(v) if isinstance(v, Mapping)
+            else _tensor_to_numpy(v) for k, v in tree.items()}
+
+
+def params_from_numpy(tree: Mapping[str, Any], device,
+                      cfg: ModelConfig) -> Dict[str, Any]:
+    """Port parameters on ``device`` from the JAX package's parameter tree
+    for ``cfg`` with numpy leaves.  Keys, shapes and dtypes must be those
+    of :func:`repro_torch.models.api.abstract_params`; extra or missing
+    keys are an error."""
+    return _tree_from_numpy(tree, abstract_params(cfg), device)
+
+
+def params_to_numpy(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's parameter tree with numpy leaves (on the host)."""
+    return _tree_to_numpy(params)
+
+
+def cache_from_numpy(tree: Mapping[str, Any], device,
+                     cfg: ModelConfig) -> Dict[str, Any]:
+    """A port decode cache on ``device`` from the JAX package's cache tree
+    with numpy leaves; batch and cache length are read from its ``k``
+    leaf (L, B, T, KV, D)."""
+    _, batch, cache_len = np.shape(tree["k"])[:3]
+    return _tree_from_numpy(tree, init_cache(cfg, batch, cache_len, "meta"),
+                            device)
+
+
+def cache_to_numpy(cache: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's decode cache with numpy leaves (on the host)."""
+    return _tree_to_numpy(cache)

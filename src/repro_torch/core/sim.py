@@ -34,6 +34,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .cache import phase1a, phase1b
 from .config import ST_DONE, ST_WAIT_DATA, ST_WAIT_DIR, SimConfig
 from .noc import phase2, phase3
@@ -60,18 +61,6 @@ def _prog_index(device: torch.device) -> torch.Tensor:
 ABORT_NONE, ABORT_LIVELOCK, ABORT_SATURATION = 0, 1, 2
 ABORT_LABELS = {ABORT_LIVELOCK: "livelock", ABORT_SATURATION: "dir_saturation"}
 _SAT_MIN_NODES = 256
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device a run uses: ``cuda`` unless the caller names another.
-    Raises when CUDA is asked for (or implied) and there is no GPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; the simulator runs on the GPU by "
-            "default and does not fall back to the CPU — pass device='cpu' "
-            "to run on the CPU")
-    return dev
 
 
 class ExecAux(NamedTuple):

@@ -35,6 +35,17 @@ class Built(NamedTuple):
 _LOADED: Dict[str, Built] = {}
 
 
+class LaunchCount:
+    """A plain launch counter; :meth:`reset` before a run, read ``n`` after.
+    Each kernel's wrapper adds one where it launches its kernel."""
+
+    def __init__(self):
+        self.n = 0
+
+    def reset(self) -> None:
+        self.n = 0
+
+
 def find_nvcc() -> str:
     """Path of ``nvcc``: on ``PATH``, else under ``$CUDA_HOME`` or
     ``/usr/local/cuda``; raises if there is none."""

@@ -7,6 +7,12 @@ the CPU the simulator calls it directly; on CUDA the hand-written kernel
 in :mod:`repro_torch.kernels.router_phase` runs instead and must match it
 bit for bit.
 
+``attention_ref`` is the plain version of the flash-attention kernel
+(:mod:`repro_torch.kernels.flash_attention`), the counterpart of
+``repro.kernels.ref.attention_ref``: the kernel must stay within
+``tests/test_kernels.py``'s tolerances of it (1e-5 in float32, 5e-2 in
+bfloat16).
+
 ``random_arb_case`` makes seeded arbitration inputs with numpy, so the
 kernel can be held against this version without the test suite.
 """
@@ -99,3 +105,29 @@ def random_arb_case(rng: np.random.Generator, n: int):
     dc = rng.integers(-3, 4, (n, 5)).astype(np.int32)
     dr = rng.integers(-3, 4, (n, 5)).astype(np.int32)
     return age, valid, we, dc, dr, vp
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True, scale: float | None = None
+                  ) -> torch.Tensor:
+    """Reference attention.  q: (B, H, S, D); k, v: (B, KV, T, D) with
+    ``H % KV == 0`` (grouped-query attention: head ``h`` reads K/V head
+    ``h // (H // KV)``, as ``jnp.repeat`` lays them out).
+
+    Logits in float32, the causal mask ``tril(ones(S, T), T - S)`` at
+    -1e30, softmax, output cast to q's dtype.
+    """
+    d = q.shape[-1]
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
+    if causal:
+        s_, t_ = logits.shape[-2:]
+        mask = torch.tril(torch.ones((s_, t_), dtype=torch.bool,
+                                     device=q.device), t_ - s_)
+        logits = torch.where(mask, logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", w, v.float()).to(q.dtype)

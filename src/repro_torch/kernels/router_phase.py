@@ -17,17 +17,7 @@ from typing import Tuple
 
 import torch
 
-from .build import build
-
-
-class LaunchCount:
-    """A plain launch counter; :meth:`reset` before a run, read ``n`` after."""
-
-    def __init__(self):
-        self.n = 0
-
-    def reset(self) -> None:
-        self.n = 0
+from .build import LaunchCount, build
 
 
 #: launches of the router-arbitration kernel in this process

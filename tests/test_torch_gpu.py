@@ -1,4 +1,4 @@
-"""The port on the card: the CUDA kernel and the main path.
+"""The port on the card: the CUDA kernels and the main paths.
 
 Every test here needs a CUDA GPU (marker ``gpu``) and skips itself
 without one; the file imports neither JAX nor ``repro``, so it runs on a
@@ -10,12 +10,18 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro_torch import convert
+from repro_torch.configs import registry
 from repro_torch.core import sim
 from repro_torch.core.config import SimConfig
 from repro_torch.core.workloads import app_trace
-from repro_torch.kernels import ops
-from repro_torch.kernels.ref import arbitrate_ref, random_arb_case
+from repro_torch.kernels import flash_attention, ops
+from repro_torch.kernels.ref import (arbitrate_ref, attention_ref,
+                                     random_arb_case)
 from repro_torch.kernels.router_phase import LAUNCHES, router_arbitrate_cuda
+from repro_torch.models import api
 
 pytestmark = pytest.mark.gpu
 
@@ -66,3 +72,66 @@ def test_main_path_on_the_card_equals_the_cpu_run(cuda):
     assert LAUNCHES.n > 0
     assert got == sim.run(cfg, tr, chunk=16, device="cpu")
     assert got["finished"] == 1
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dtype,causal", [
+    (1, 2, 2, 256, 64, torch.float32, True),
+    (2, 1, 1, 128, 128, torch.bfloat16, True),
+    (1, 4, 4, 384, 64, torch.float32, False),
+    (2, 2, 2, 512, 32, torch.bfloat16, True),
+    (2, 8, 2, 256, 64, torch.float32, True),     # GQA: 4 heads per KV head
+])
+def test_flash_attention_kernel_matches_plain_version(cuda, b, h, kv, s, d,
+                                                      dtype, causal):
+    """K2 against attention_ref at test_kernels.py's shapes and
+    tolerances (1e-5 float32, 5e-2 bfloat16)."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).to(cuda, dtype)
+               for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
+    before = flash_attention.LAUNCHES.n
+    got = ops.attention(q, k, v, causal=causal)
+    assert flash_attention.LAUNCHES.n == before + 1
+    want = attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err < (5e-2 if dtype == torch.bfloat16 else 1e-5), err
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    z = lambda *shape: torch.zeros(shape, device=cuda)   # noqa: E731
+    x = z(1, 2, 128, 64)
+    before = flash_attention.LAUNCHES.n
+    for bad, err in (((x.double(),) * 3, TypeError),
+                     ((z(1, 2, 128, 48),) * 3, ValueError),      # D
+                     ((z(1, 2, 96, 64),) * 3, ValueError),       # S % 128
+                     ((z(1, 3, 128, 64), x, x), ValueError),     # H % KV
+                     ((x, x, z(1, 2, 256, 64)), ValueError),     # k != v
+                     ((x.transpose(2, 3).contiguous().transpose(2, 3), x,
+                       x), ValueError),                          # strided
+                     ((x, x.cpu(), x), ValueError)):             # device
+        with pytest.raises(err):
+            flash_attention.flash_attention_cuda(*bad)
+    with pytest.raises(ValueError, match="S == T"):
+        flash_attention.flash_attention_cuda(x, z(1, 2, 256, 64),
+                                             z(1, 2, 256, 64), causal=True)
+    assert flash_attention.LAUNCHES.n == before
+
+
+def test_lm_forward_on_the_card_equals_the_cpu_run(cuda):
+    """Reduced tinyllama at float32 compute, head_dim 64, S = 128: the
+    kernel route on the card (one K2 launch a layer) against the plain
+    route on the CPU, within 1e-4 on logits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.reduced("tinyllama-1.1b"),
+                              compute_dtype="float32", d_model=128,
+                              n_heads=2, n_kv_heads=1)
+    params = api.init_params(cfg, 0, device="cpu")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 128))
+    want, _ = api.forward_logits(cfg, params, {"tokens": tokens},
+                                 device="cpu")
+    on_card = convert.params_from_numpy(convert.params_to_numpy(params),
+                                        cuda, cfg)
+    flash_attention.LAUNCHES.reset()
+    got, _ = api.forward_logits(cfg, on_card, {"tokens": tokens})
+    assert flash_attention.LAUNCHES.n == cfg.n_layers
+    assert float((got.cpu() - want).abs().max()) < 1e-4

@@ -15,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.core import sim as tsim
 from repro_torch.core.config import SimConfig
-from repro_torch.launch import simulate
+from repro_torch.launch import serve, simulate
+from repro_torch.models import api
+from repro_torch.serve.server import Server
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SRC = os.path.join(ROOT, "src")
@@ -35,7 +38,14 @@ def test_port_imports_no_jax_and_no_repro():
         "import sys; sys.path.insert(0, %r)\n"
         "import repro_torch, repro_torch.core, repro_torch.core.sim, "
         "repro_torch.kernels.ops, repro_torch.convert, "
-        "repro_torch.launch.simulate\n"
+        "repro_torch.launch.simulate, repro_torch.kernels.flash_attention, "
+        "repro_torch.models.config, repro_torch.models.params, "
+        "repro_torch.models.common, repro_torch.models.zoo, "
+        "repro_torch.models.api, repro_torch.configs.registry, "
+        "repro_torch.serve.server, repro_torch.launch.serve, "
+        "repro_torch.train.step\n"
+        "from repro_torch.configs import registry\n"
+        "[registry.get(a) for a in registry.ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n" % SRC)
@@ -67,6 +77,28 @@ def test_run_without_a_device_needs_a_gpu():
         tsim.VectorSim(cfg, tr)
     with pytest.raises(RuntimeError, match="CUDA"):
         simulate.main(["--rows", "2", "--cols", "2", "--refs", "2"])
+
+
+def test_lm_entry_points_need_a_gpu_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    cfg = registry.reduced("tinyllama-1.1b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_params(cfg, 0)
+    params = api.init_params(cfg, 0, device="cpu")
+    tokens = np.zeros((1, 4), np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.forward_logits(cfg, params, {"tokens": tokens})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Server(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "tinyllama-1.1b", "--reduced",
+                    "--requests", "1"])
+    # asked for the CPU, each runs there
+    logits, _ = api.forward_logits(cfg, params, {"tokens": tokens},
+                                   device="cpu")
+    assert logits.device.type == "cpu" and logits.shape == (1, 4, cfg.vocab)
+    assert Server(cfg, params, device="cpu").cache["k"].device.type == "cpu"
 
 
 def test_launcher_on_the_cpu(tmp_path, capsys):
