@@ -15,12 +15,14 @@ caught:
    on the card, bit-exact on seeded cases (n = 1..400, 127/128/129 and
    the 208x208 mesh's 43,264 routers); both timed at 43,264 (device time
    from ``torch.profiler``, and per call with CUDA events);
-4. kernel-K2 — K2 (flash attention) against ``attention_ref`` at the
-   four ``tests/test_kernels.py`` shapes, a grouped-query case and the
-   tinyllama-1.1b prefill shape (4, 32, 2048, 64) bf16 causal, within
-   1e-5 (float32) and 5e-2 (bfloat16); at the prefill shape the kernel,
-   the plain version and ``scaled_dot_product_attention`` (the library
-   yardstick, never called by the port) are timed;
+4. kernel-K2 — K2 (flash attention: bf16 on the tensor cores, float32
+   on the CUDA cores) against ``attention_ref`` at the four
+   ``tests/test_kernels.py`` shapes, grouped-query cases at D 32, 64 and
+   128, S != T cases and the tinyllama-1.1b prefill shape (4, 32, 2048,
+   64) bf16 causal, within 1e-5 (float32) and 5e-2 (bfloat16), one
+   launch a call; at the prefill shape the kernel, the plain version and
+   ``scaled_dot_product_attention`` (the library yardstick, never called
+   by the port) are timed;
 5. wedge     — the former S14 wedge (16x16, distributed directory,
    ``app_trace_loop(cfg, "matmul", 20, 0)``) run to completion on the
    card through ``run``; its statistics must equal the port's own CPU run
@@ -35,7 +37,7 @@ caught:
    prefill step at B=4, S=2048: K2 launches exactly 22 times, the logits
    are finite, and the last-token logits agree with the same forward
    forced through the einsum route (bf16 and float32 compute); timed and
-   profiled;
+   profiled, and the profile must name the bf16 tensor-core kernel;
 8. lm-decode — a 128-token prompt fed one token at a time through
    ``decode_step`` (no K2 launch) tracks the cache-free forward at S=128
    (22 K2 launches);
@@ -83,17 +85,25 @@ ARB_OPS_PER_ROUTER = 5 * 30 + 5 * 75
 PAPER_CYCLES = 32
 TIMED_CYCLES = 256
 
-#: K2's shapes: (B, H, KV, S, D, dtype, causal); the first four are
-#: tests/test_kernels.py's, then a grouped-query case, then the
-#: tinyllama-1.1b prefill (B 4, S 2048) that the main path gives it
+#: K2's shapes: (B, H, KV, S, D, dtype, causal), with T = S, or T
+#: appended; the first four are tests/test_kernels.py's, then
+#: grouped-query cases (at yi-6b's heads for D 128), then S != T, then
+#: the tinyllama-1.1b prefill (B 4, S 2048) that the main path gives it
 K2_SHAPES = [(1, 2, 2, 256, 64, "float32", True),
              (2, 1, 1, 128, 128, "bfloat16", True),
              (1, 4, 4, 384, 64, "float32", False),
              (2, 2, 2, 512, 32, "bfloat16", True),
-             (2, 8, 2, 256, 64, "float32", True)]
+             (2, 8, 2, 256, 64, "float32", True),
+             (2, 8, 2, 256, 64, "bfloat16", True),
+             (1, 32, 4, 1024, 128, "bfloat16", True),
+             (2, 4, 1, 512, 32, "bfloat16", True),
+             (2, 4, 2, 128, 64, "bfloat16", False, 384),
+             (1, 4, 1, 128, 128, "bfloat16", False, 384)]
 PREFILL_SHAPE = (4, 32, 4, 2048, 64, "bfloat16", True)
 #: test_kernels.py's tolerances of the flash kernel against attention_ref
 K2_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+#: the bf16 tensor-core kernel's symbol, as the profiler names it
+K2_BF16_SYMBOL = "flash_attention_wgmma_kernel"
 
 LM_ARCH = "tinyllama-1.1b"
 PREFILL_BATCH, PREFILL_SEQ = 4, 2048
@@ -366,9 +376,10 @@ def k2_case(shape, dev, seed: int = 0):
     shape."""
     import numpy as np
     import torch
-    b, h, kv, s, d, dt, _ = shape
+    b, h, kv, s, d, dt, _, *t = shape
+    t = t[0] if t else s
     dtype = getattr(torch, dt)
-    shapes = ((b, h, s, d), (b, kv, s, d), (b, kv, s, d))
+    shapes = ((b, h, s, d), (b, kv, t, d), (b, kv, t, d))
     if shape == PREFILL_SHAPE:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return [torch.randn(sh, generator=gen, device=dev).to(dtype)
@@ -382,13 +393,18 @@ def phase_kernel_k2(dev):
     """K2 against attention_ref; returns the kernel's record."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention_cuda)
     from repro_torch.kernels.ref import attention_ref
 
     for shape in K2_SHAPES + [PREFILL_SHAPE]:
-        b, h, kv, s, d, dt, causal = shape
+        b, h, kv, s, d, dt, causal, *t = shape
         q, k, v = k2_case(shape, dev)
+        before = LAUNCHES.n
         got = flash_attention_cuda(q, k, v, causal=causal)
+        if LAUNCHES.n != before + 1:
+            fail(f"K2 counted {LAUNCHES.n - before} launches for one call "
+                 f"at {shape}")
         want = attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got.float()).all()):
@@ -397,9 +413,10 @@ def phase_kernel_k2(dev):
         if not err < K2_TOL[dt]:
             fail(f"K2 disagrees with attention_ref at {shape}: max abs err "
                  f"{err} (tolerance {K2_TOL[dt]})")
-        print(f"kernel-K2: (B, H, KV, S, D) = {(b, h, kv, s, d)} {dt} "
-              f"causal={causal}: max |err| vs attention_ref {err:.3e} "
-              f"(tolerance {K2_TOL[dt]})")
+        print(f"kernel-K2: (B, H, KV, S, T, D) = "
+              f"{(b, h, kv, s, t[0] if t else s, d)} {dt} causal={causal}: "
+              f"max |err| vs attention_ref {err:.3e} (tolerance "
+              f"{K2_TOL[dt]})")
     prefill_err = err
 
     b, h, kv, s, d, dt, causal = PREFILL_SHAPE
@@ -417,6 +434,9 @@ def phase_kernel_k2(dev):
     _, pl = device_profile(plain, 3)
     _, lib = device_profile(library, iters)
     mine = {n: v for n, v in kern.items() if "flash_attention" in n}
+    if mine and not any(K2_BF16_SYMBOL in n for n in mine):
+        fail(f"K2 at the prefill shape ran {sorted(mine)}, not "
+             f"{K2_BF16_SYMBOL}")
     if mine and pl and lib:
         ms = sum(v[0] for v in mine.values()) / iters
         plain_ms = sum(v[0] for v in pl.values()) / 3
@@ -441,7 +461,9 @@ def phase_kernel_k2(dev):
           f"ms, library {lib_call_ms:.6f} ms; bound "
           f"{max(flop_ms, bytes_ms):.6f} ms (operations {flop_ms:.6f}: "
           f"{flop:.4e} FLOP at 989 TFLOP/s bf16; bytes {bytes_ms:.6f}: "
-          f"{nbytes} B at 3.35 TB/s)")
+          f"{nbytes} B at 3.35 TB/s); kernel / library {ms / lib_ms:.3f}, "
+          f"bound / kernel {max(flop_ms, bytes_ms) / ms:.4f}; kernels "
+          f"{sorted(mine)}")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -543,12 +565,18 @@ def phase_lm_prefill(dev):
 
     wall_p, kern = device_profile(lambda: prefill(params, batch), 1)
     busy = sum(v[0] for v in kern.values())
-    k2 = sum(v[0] for n, v in kern.items() if "flash_attention" in n)
+    k2_names = {n: v for n, v in kern.items() if "flash_attention" in n}
+    k2 = sum(v[0] for v in k2_names.values())
     print(f"lm-prefill profile: wall {wall_p:.3f} ms (under the profiler), "
           f"device busy {busy:.3f} ms (idle share "
           f"{1 - busy / wall_p:.4f}), "
           f"{sum(v[1] for v in kern.values())} kernel launches, K2 "
           f"{k2:.3f} ms ({k2 / max(busy, 1e-9):.3f} of device time)")
+    for name, (ms, count) in sorted(k2_names.items()):
+        print(f"lm-prefill profile:   K2 {ms:.3f} ms  {count}x  {name}")
+    if kern and not any(K2_BF16_SYMBOL in n for n in k2_names):
+        fail(f"lm-prefill: the profile names no {K2_BF16_SYMBOL} among "
+             f"K2's kernels {sorted(k2_names)}")
     for name, (ms, count) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"lm-prefill profile:   {ms:.3f} ms  {count}x  {name[:90]}")
     return cfg, params, launches

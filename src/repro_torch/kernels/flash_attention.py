@@ -1,15 +1,30 @@
-"""Flash attention (forward) on Hopper: wrapper of the CUDA kernel.
+"""Flash attention (forward) on Hopper: wrapper of the CUDA kernels.
 
-The kernel (``csrc/flash_attention.cu``) replaces the JAX package's
-Pallas kernel ``repro/kernels/flash_attention.py::_attn_kernel``: one CTA
-per 128-row query tile, K/V streamed through shared memory up to the
-causal diagonal, online softmax in float32 on the CUDA cores.  Its plain
-PyTorch version is :func:`repro_torch.kernels.ref.attention_ref`.
+Both kernels (``csrc/flash_attention.cu``, one C entry point) replace the
+JAX package's Pallas kernel
+``repro/kernels/flash_attention.py::_attn_kernel``; the wrapper picks one
+by dtype:
+
+* bfloat16 goes to ``flash_attention_wgmma_kernel``, on the tensor cores:
+  one CTA per 128-row query tile (two consumer warpgroups of 64 rows and
+  one producer warp), Q and 128-row K/V tiles copied by TMA through a
+  3-stage ring under mbarriers, S = Q.K^T and O += P.V as ``wgmma`` with
+  float32 accumulators, P rounded to bf16 in registers, the online
+  softmax in float32 between them, overlapped with the previous tile's
+  P.V;
+* float32 goes to ``flash_attention_f32_kernel``, on the CUDA cores:
+  ``wgmma`` would take float32 as TF32, which keeps about three decimal
+  digits and misses the 1e-5 tolerance.
+
+What bounds both is operations: 6.875e10 FLOP at the tinyllama-1.1b
+prefill shape (4, 32 heads, 4 KV heads, 2048, 64), 0.0695 ms at the
+H100's 989 TFLOP/s of bf16 tensor-core work.  Their plain PyTorch
+version is :func:`repro_torch.kernels.ref.attention_ref`.
 
 The library is built with ``nvcc`` at the first call
 (:mod:`repro_torch.kernels.build`), never at import, so this module
-imports on a machine without CUDA.  :data:`LAUNCHES` counts the kernel's
-launches, so a run can show that it went through the kernel.
+imports on a machine without CUDA.  :data:`LAUNCHES` counts the kernels'
+launches, so a run can show that it went through them.
 """
 from __future__ import annotations
 
@@ -19,13 +34,15 @@ import torch
 
 from .build import LaunchCount, build
 
-#: launches of the flash-attention kernel in this process
+#: launches of the flash-attention kernels in this process
 LAUNCHES = LaunchCount()
 
-#: head dims the kernel is built for
+#: head dims the kernels are built for
 HEAD_DIMS = (32, 64, 128)
-#: S and T must be multiples of this (the kernel's query tile)
+#: S and T must be multiples of this (the kernels' query and key tile)
 BLOCK = 128
+#: the bf16 kernel addresses rows of q (B*H*S) and k, v (B*KV*T) as int32
+MAX_ROWS = 2 ** 31 - 1
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,7 +61,7 @@ def _lib() -> ctypes.CDLL:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
-    """Launch the kernel on the current stream.
+    """Launch the kernel for q's dtype on the current stream.
 
     Takes q (B, H, S, D) and k, v (B, KV, T, D), contiguous, of one dtype
     (float32 or bfloat16), on the current CUDA device, with ``H % KV ==
@@ -82,11 +99,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal and s != t:
         raise ValueError(f"causal attention needs S == T, got S = {s}, "
                          f"T = {t}")
+    if max(b * h * s, b * kvh * t) > MAX_ROWS:
+        raise ValueError(f"{b * h * s} rows of q or {b * kvh * t} of k, v "
+                         f"exceed {MAX_ROWS}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % 16:
-            # the kernel reads rows in 16-byte (float32) or 8-byte granules
+            # float32 rows are read in 16-byte granules; TMA needs a
+            # 16-byte aligned base for bf16
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if q.device.index != torch.cuda.current_device():
         # the C entry point launches on the thread's current device

@@ -74,20 +74,27 @@ def test_main_path_on_the_card_equals_the_cpu_run(cuda):
     assert got["finished"] == 1
 
 
-@pytest.mark.parametrize("b,h,kv,s,d,dtype,causal", [
-    (1, 2, 2, 256, 64, torch.float32, True),
-    (2, 1, 1, 128, 128, torch.bfloat16, True),
-    (1, 4, 4, 384, 64, torch.float32, False),
-    (2, 2, 2, 512, 32, torch.bfloat16, True),
-    (2, 8, 2, 256, 64, torch.float32, True),     # GQA: 4 heads per KV head
+@pytest.mark.parametrize("b,h,kv,s,d,dtype,causal,t", [
+    (1, 2, 2, 256, 64, torch.float32, True, None),
+    (2, 1, 1, 128, 128, torch.bfloat16, True, None),
+    (1, 4, 4, 384, 64, torch.float32, False, None),
+    (2, 2, 2, 512, 32, torch.bfloat16, True, None),
+    (2, 8, 2, 256, 64, torch.float32, True, None),   # GQA: 4 per KV head
+    (2, 8, 2, 256, 64, torch.bfloat16, True, None),  # GQA, the main path's D
+    (1, 32, 4, 1024, 128, torch.bfloat16, True, None),   # yi-6b's heads
+    (2, 4, 1, 512, 32, torch.bfloat16, True, None),  # GQA at D 32
+    (2, 4, 2, 128, 64, torch.bfloat16, False, 384),  # S != T
+    (1, 4, 1, 128, 128, torch.bfloat16, False, 384),
 ])
 def test_flash_attention_kernel_matches_plain_version(cuda, b, h, kv, s, d,
-                                                      dtype, causal):
+                                                      dtype, causal, t):
     """K2 against attention_ref at test_kernels.py's shapes and
-    tolerances (1e-5 float32, 5e-2 bfloat16)."""
+    tolerances (1e-5 float32, 5e-2 bfloat16), and more bf16 shapes for
+    the tensor-core kernel (``t`` None: T = S)."""
+    t = s if t is None else t
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape)).to(cuda, dtype)
-               for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
+               for shape in ((b, h, s, d), (b, kv, t, d), (b, kv, t, d)))
     before = flash_attention.LAUNCHES.n
     got = ops.attention(q, k, v, causal=causal)
     assert flash_attention.LAUNCHES.n == before + 1
