@@ -8,13 +8,22 @@ what it found; any failure exits non-zero and no phase's failure is
 caught:
 
 1. card      — the card's name and power limit, from ``nvidia-smi``;
-2. build     — compile both kernels from ``src/repro_torch/kernels/csrc/``
-   with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, started
-   together; prints ptxas's register/spill report;
-3. kernel    — K1 (router arbitration) against its plain PyTorch version
-   on the card, bit-exact on seeded cases (n = 1..400, 127/128/129 and
-   the 208x208 mesh's 43,264 routers); both timed at 43,264 (device time
-   from ``torch.profiler``, and per call with CUDA events);
+2. build     — compile both sources in ``src/repro_torch/kernels/csrc/``
+   (the router kernels and K2) with ``nvcc`` for ``sm_90a``, one ``nvcc``
+   per source, started together; prints ptxas's register/spill report;
+3. kernel    — K1 (router arbitration alone) against its plain PyTorch
+   version on the card, bit-exact on seeded cases (n = 1..400,
+   127/128/129 and the 208x208 mesh's 43,264 routers); both timed at
+   43,264 (device time from ``torch.profiler``, and per call with CUDA
+   events);
+3b. kernel-phase2 — K1's redesign, the fused Phase-2 router kernel, which
+   the simulator runs once a cycle: bit-exact against its plain version
+   (run on CPU copies) on seeded cases (n = 1 to 43,264, the 128-router
+   tile's edges, pending depth 1, 2 and 4, views off a 16-byte boundary)
+   and on mid-run states of the wedge and of paper-208 taken after Phases
+   1a and 1b of a cycle; timed at 43,264 routers beside its byte bound
+   and the eager Phase 2 (the plain version on CUDA tensors: device time
+   and launches);
 4. kernel-K2 — K2 (flash attention: bf16 on the tensor cores, float32
    on the CUDA cores) against ``attention_ref`` at the four
    ``tests/test_kernels.py`` shapes, grouped-query cases at D 32, 64 and
@@ -26,12 +35,15 @@ caught:
 5. wedge     — the former S14 wedge (16x16, distributed directory,
    ``app_trace_loop(cfg, "matmul", 20, 0)``) run to completion on the
    card through ``run``; its statistics must equal the port's own CPU run
-   (plain arbitration), and K1 must have launched;
+   (plain versions), the fused Phase-2 kernel must have launched once a
+   stepped cycle and the standalone arbitration never;
 6. paper     — the paper's 208x208 mesh, packed state, 32 cycles, exactly
    as ``benchmarks/paper_scale.py --smoke`` runs it; its statistics must
    equal ``BENCH_paper_scale.json`` ``raw.stats`` (the JAX package's
-   output, read as data); then a longer run at the same mesh is timed,
-   and a window of it profiled (device busy share, launches a cycle);
+   output, read as data), with one fused Phase-2 launch a cycle and no
+   standalone arbitration; then a longer run at the same mesh is timed,
+   and a window of it profiled (device busy share, launches a cycle, the
+   fused kernel once a cycle by name);
 7. lm-prefill — tinyllama-1.1b at full width (22 layers, seeded random
    parameters from the port's own init, float32, bf16 compute), the
    prefill step at B=4, S=2048: K2 launches exactly 22 times, the logits
@@ -47,7 +59,8 @@ caught:
    at reduced width its tokens equal the CPU run's.
 
 The two lines before the last are the card (as ``nvidia-smi`` gives it)
-and one JSON object with both kernels' numbers; the last line is
+and one JSON object with the three kernels' numbers (K1 alone, the fused
+Phase-2 kernel, K2); the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU it exits non-zero and
 prints no result.
 """
@@ -81,6 +94,35 @@ ARB_BYTES_PER_ROUTER = 5 * (3 * 4 + 2 * 1) + 4 + 5 * (4 + 1)
 #: select of 6 values, about 30, a 4-way argmin with the taken costs,
 #: about 15, and the updates, about 15)
 ARB_OPS_PER_ROUTER = 5 * 30 + 5 * 75
+#: integer operations per router of the fused Phase-2 kernel, counted
+#: from its source at 8 ROB slots and pending depth 4: staging about 116
+#: words in and 40 out at about 8 operations a word (address, divide,
+#: store), the ROB scan (8 x 17) and pending count (4 x 3), the ejection
+#: pick (4 x 15), the injection flit and candidates (about 90), the
+#: arbitration (ARB_OPS_PER_ROUTER), routing (4 ports x 10 fields x
+#: about 12 selects) and the pop and counts (about 30)
+P2_OPS_PER_ROUTER = 156 * 8 + 8 * 17 + 4 * 3 + 4 * 15 + 90 \
+    + ARB_OPS_PER_ROUTER + 4 * 10 * 12 + 30
+#: the fused kernel's arguments, in order
+P2_ARGS = ("inp", "rob", "pc", "q_desc", "q_head", "q_size", "q_fid",
+           "node_id", "node_r", "node_c", "valid_port", "knob_ej_age",
+           "stats")
+#: seeded Phase-2 cases (n, rob slots, pending depth, send queue, rows,
+#: cols, view offset in routers): the tile's edges, depth 1 (20 B a
+#: router, off the 16-byte grid), an odd ROB slab, offset views, and the
+#: 208x208 mesh
+P2_CASES = ([(n, 8, 4, 64, 4, 4, 0) for n in (1, 2, 3, 16, 31, 33)]
+            + [(n, 8, 4, 64, 16, 16, 0) for n in (127, 128, 129, 255, 256,
+                                                    257, 1000)]
+            + [(n, 8, 1, 64, 16, 16, 0) for n in (127, 128, 129)]
+            + [(129, 3, 2, 4, 5, 7, 0), (300, 8, 1, 16, 3, 5, 1),
+               (300, 8, 4, 16, 3, 5, 3), (43_264, 8, 4, 64, 208, 208, 0),
+               (43_264, 8, 1, 64, 208, 208, 0)])
+#: cycles after which the wedge's and paper-208's states are taken (then
+#: Phases 1a and 1b of the next cycle run before the comparison)
+WEDGE_SNAPSHOTS = (300, 900)
+PAPER_SNAPSHOTS = (8, 24)
+P2_SYMBOL = "phase2_router_kernel"
 
 PAPER_CYCLES = 32
 TIMED_CYCLES = 256
@@ -247,17 +289,177 @@ def phase_kernel(dev):
     }
 
 
+def p2_bytes(args) -> int:
+    """Bytes the fused Phase-2 kernel must move for these inputs: each
+    input read once (of ``q_desc`` only the head rows), each output
+    written once."""
+    n = args["inp"].shape[0]
+    nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+    read = (sum(nbytes(args[k]) for k in P2_ARGS if k != "q_desc")
+            + n * args["q_desc"].shape[2] * args["q_desc"].element_size())
+    # out, ej_port (int64), has_ej, the three queue words; stats and the
+    # two 0-d counts
+    written = n * (nbytes(args["inp"]) // n + 8 + 1 + 3 * 4) \
+        + nbytes(args["stats"]) + 2 * 4
+    return read + written
+
+
+def midrun_phase2_inputs(cfg, trace, snapshots, dev):
+    """Phase 2's inputs on the card at each snapshot cycle: the state
+    after that many cycles, widened, then Phases 1a and 1b of the next
+    cycle, as ``sim.cycle_step`` hands them to ``noc.phase2``."""
+    from repro_torch.core.cache import phase1a, phase1b
+    from repro_torch.core.sim import VectorSim
+    from repro_torch.core.state import widen_state
+    vs = VectorSim(cfg, trace, device=dev)
+    out = []
+    for c in range(max(snapshots) + 1):
+        if c in snapshots:
+            s = phase1b(phase1a(widen_state(vs.state), cfg, vs.ctx), cfg,
+                        vs.ctx)
+            ctx = vs.ctx
+            out.append((c, dict(
+                inp=s.inp, rob=s.rob, pc=s.pc, q_desc=s.q_desc,
+                q_head=s.q_head, q_size=s.q_size, q_fid=s.q_fid,
+                node_id=ctx.node_id, node_r=ctx.node_r, node_c=ctx.node_c,
+                valid_port=ctx.valid_port, knob_ej_age=s.knob_ej_age,
+                stats=s.stats)))
+        if c < max(snapshots):
+            vs.step()
+    return out
+
+
+def phase_kernel_phase2(dev):
+    """The fused Phase-2 router kernel against its plain version; returns
+    the kernel's record."""
+    import numpy as np
+    import torch
+    from repro_torch.core.config import SimConfig
+    from repro_torch.core.workloads import app_trace_loop, random_trace
+    from repro_torch.kernels.ref import phase2_router_ref, random_phase2_case
+    from repro_torch.kernels.router_phase import LAUNCHES, phase2_router_cuda
+
+    max_err = 0
+
+    def compare(card, cols, what):
+        nonlocal max_err
+        before = LAUNCHES.n
+        got = phase2_router_cuda(*(card[k] for k in P2_ARGS), cols=cols)
+        if LAUNCHES.n != before + 1:
+            fail(f"kernel-phase2: {LAUNCHES.n - before} launches counted "
+                 f"for one call ({what})")
+        want = phase2_router_ref(*(card[k].cpu() for k in P2_ARGS),
+                                 cols=cols)
+        torch.cuda.synchronize()
+        for name, g, w in zip(want._fields, got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"kernel-phase2: {name} is {g.dtype} {tuple(g.shape)}, "
+                     f"the plain version's {w.dtype} {tuple(w.shape)} "
+                     f"({what})")
+            err = int((g.cpu().long() - w.long()).abs().max()) \
+                if w.numel() else 0
+            if err:
+                fail(f"kernel-phase2: {name} differs from "
+                     f"phase2_router_ref by up to {err} ({what})")
+            max_err = max(max_err, err)
+
+    for seed, (n, k, depth, qp, rows, cols, off) in enumerate(P2_CASES):
+        arrs = random_phase2_case(np.random.default_rng(seed), n, k, depth,
+                                  qp, rows, cols)
+        card = {}
+        for name in P2_ARGS:
+            t = torch.from_numpy(arrs[name]).to(dev)
+            if off and t.dim() and t.shape[0] == n:
+                # a contiguous view that starts off routers into its storage
+                t = torch.cat([t[:off], t])[off:]
+            card[name] = t
+        compare(card, cols, f"seeded n={n} K={k} depth={depth} "
+                            f"offset={off}")
+    print(f"kernel-phase2: phase2_router bit-exact against "
+          f"phase2_router_ref on {len(P2_CASES)} seeded cases (n = 1 to "
+          f"43264, pending depth 1/2/4, offset views)")
+
+    wedge = SimConfig(rows=16, cols=16, centralized_directory=False,
+                      max_cycles=200_000)
+    paper = SimConfig(rows=208, cols=208, max_cycles=PAPER_CYCLES,
+                      centralized_directory=False, dir_layout="home",
+                      state_dtype_policy="packed")
+    states = [("wedge", wedge, c, a) for c, a in midrun_phase2_inputs(
+        wedge, app_trace_loop(wedge, "matmul", 20, 0), WEDGE_SNAPSHOTS, dev)]
+    states += [("paper-208", paper, c, a) for c, a in midrun_phase2_inputs(
+        paper, random_trace(paper, refs_per_core=8, seed=0),
+        PAPER_SNAPSHOTS, dev)]
+    for name, cfg, cyc, args in states:
+        compare(args, cfg.cols, f"{name} after cycle {cyc}")
+        flits = int((args["inp"][..., 0] > 0).sum())
+        print(f"kernel-phase2: {name} mid-run state after {cyc} cycles "
+              f"(+ phases 1a, 1b; {flits} flits in the network): "
+              f"bit-exact")
+
+    # timed at 43,264 routers on the paper run's own inputs (the timed
+    # config: 64 refs/core, mid-run)
+    cfg_t = SimConfig(rows=208, cols=208, max_cycles=TIMED_CYCLES,
+                      centralized_directory=False, dir_layout="home",
+                      state_dtype_policy="packed")
+    (_, args), = midrun_phase2_inputs(
+        cfg_t, random_trace(cfg_t, refs_per_core=64, seed=0), (16,), dev)
+    vals = [args[k] for k in P2_ARGS]
+    kernel = lambda: phase2_router_cuda(*vals, cols=cfg_t.cols)  # noqa: E731
+    plain = lambda: phase2_router_ref(*vals, cols=cfg_t.cols)    # noqa: E731
+    call_ms = event_ms(kernel, 500)
+    plain_call_ms = event_ms(plain, 50)
+    iters = 200
+    _, kern = device_profile(kernel, iters)
+    _, pl = device_profile(plain, 20)
+    mine = {k: v for k, v in kern.items() if P2_SYMBOL in k}
+    plain_launches = sum(v[1] for v in pl.values()) / 20
+    if mine and pl:
+        ms = sum(v[0] for v in mine.values()) / iters
+        plain_ms = sum(v[0] for v in pl.values()) / 20
+    else:
+        print("kernel-phase2: torch.profiler recorded no device time; "
+              "reporting the CUDA-event times")
+        ms, plain_ms = call_ms, plain_call_ms
+    n = cfg_t.num_nodes
+    nbytes = p2_bytes(args)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * P2_OPS_PER_ROUTER / SCALAR_OPS_PER_S * 1e3
+    print(f"kernel-phase2: n={n} (paper-208 after 16 cycles) device time "
+          f"(torch.profiler): kernel {ms:.6f} ms, eager Phase 2 (plain "
+          f"version on the card) {plain_ms:.6f} ms in {plain_launches:.1f} "
+          f"launches a call; per call on the card's timeline (CUDA "
+          f"events): kernel {call_ms:.6f} ms, eager {plain_call_ms:.6f} "
+          f"ms; bound {max(bytes_ms, ops_ms):.6f} ms (bytes {bytes_ms:.6f}: "
+          f"{nbytes} B, {nbytes / n:.1f} B a router, at 3.35 TB/s; ops "
+          f"{ops_ms:.6f}); bound / kernel "
+          f"{max(bytes_ms, ops_ms) / ms:.4f}; kernels {sorted(mine)}")
+    return {
+        "name": "phase2_router",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/router_arbitrate.cu",
+        "replaces": "src/repro/kernels/router_phase.py:36",
+        "launches": None,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,     # no single PyTorch call computes it
+    }
+
+
 def phase_wedge(dev) -> None:
     import torch
     from repro_torch.core.config import SimConfig
     from repro_torch.core.sim import run
     from repro_torch.core.workloads import app_trace_loop
-    from repro_torch.kernels.router_phase import LAUNCHES
+    from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
 
     cfg = SimConfig(rows=16, cols=16, centralized_directory=False,
                     max_cycles=200_000)
     tr = app_trace_loop(cfg, "matmul", 20, 0)
     LAUNCHES.reset()
+    ARB_LAUNCHES.reset()
     t0 = time.perf_counter()
     gpu = run(cfg, tr, chunk=64, device=dev)
     torch.cuda.synchronize()
@@ -265,8 +467,13 @@ def phase_wedge(dev) -> None:
     launches = LAUNCHES.n
     if gpu["finished"] != 1 or "aborted" in gpu:
         fail(f"wedge did not complete on the card: {gpu}")
-    if launches <= 0:
-        fail("wedge ran without launching the arbitration kernel")
+    # the driver steps whole 64-cycle chunks, then cycle by cycle
+    if not gpu["cycles"] <= launches < gpu["cycles"] + 64:
+        fail(f"wedge: {launches} fused Phase-2 launches for "
+             f"{gpu['cycles']} cycles, expected one a stepped cycle")
+    if ARB_LAUNCHES.n:
+        fail(f"wedge launched the standalone arbitration {ARB_LAUNCHES.n} "
+             f"times")
     t0 = time.perf_counter()
     cpu = run(cfg, tr, chunk=64, device="cpu")
     cpu_wall = time.perf_counter() - t0
@@ -276,18 +483,20 @@ def phase_wedge(dev) -> None:
         fail(f"wedge: card and CPU statistics differ: {diff}")
     print(f"wedge: 16x16 completed in {gpu['cycles']} cycles "
           f"({gpu['send_drop']} drops recovered), card stats == CPU stats; "
-          f"kernel launches {launches}; card {wall:.3f} s "
+          f"fused Phase-2 launches {launches}, standalone arbitration "
+          f"{ARB_LAUNCHES.n}; card {wall:.3f} s "
           f"({gpu['cycles'] / wall:.1f} cycles/s), CPU {cpu_wall:.3f} s")
 
 
-def phase_paper(dev) -> int:
+def phase_paper(dev):
     """208x208 packed 32-cycle run against the JAX package's baseline;
-    returns the kernel launches of that run."""
+    returns the launches of the fused Phase-2 kernel and of the
+    standalone arbitration in that run."""
     import torch
     from repro_torch.core.config import SimConfig
     from repro_torch.core.sim import VectorSim, run
     from repro_torch.core.workloads import random_trace
-    from repro_torch.kernels.router_phase import LAUNCHES
+    from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
 
     with open(os.path.join(ROOT, "BENCH_paper_scale.json")) as f:
         want = json.load(f)["raw"]["stats"]
@@ -296,24 +505,29 @@ def phase_paper(dev) -> int:
                     state_dtype_policy="packed")
     tr = random_trace(cfg, refs_per_core=8, seed=0)
     LAUNCHES.reset()
+    ARB_LAUNCHES.reset()
     t0 = time.perf_counter()
     got = run(cfg, tr, max_cycles=PAPER_CYCLES, chunk=PAPER_CYCLES,
               device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = LAUNCHES.n
+    launches, arb_launches = LAUNCHES.n, ARB_LAUNCHES.n
     if got != want:
         diff = {k: (want.get(k), got.get(k)) for k in set(want) | set(got)
                 if want.get(k) != got.get(k)}
         fail(f"208x208 statistics differ from BENCH_paper_scale.json: "
              f"{diff}")
     if launches != PAPER_CYCLES:
-        fail(f"208x208: {launches} kernel launches in {PAPER_CYCLES} "
+        fail(f"208x208: {launches} fused Phase-2 launches in {PAPER_CYCLES} "
              f"cycles, expected one a cycle")
+    if arb_launches:
+        fail(f"208x208: the standalone arbitration launched {arb_launches} "
+             f"times, expected none")
     print(f"paper: 208x208 packed {PAPER_CYCLES} cycles == "
           f"BENCH_paper_scale.json raw.stats "
           f"({got['flits_delivered']} flits delivered, {got['hops']} hops); "
-          f"kernel launches {launches}; {wall:.3f} s including set-up")
+          f"fused Phase-2 launches {launches}, standalone arbitration "
+          f"{arb_launches}; {wall:.3f} s including set-up")
 
     # a longer run at the same mesh, timed after a short warm-up run
     cfg_t = SimConfig(rows=208, cols=208, max_cycles=TIMED_CYCLES,
@@ -342,17 +556,24 @@ def phase_paper(dev) -> int:
         lambda: [vs.step() for _ in range(cycles)], 1)
     busy = sum(v[0] for v in kern.values())
     launches_per_cycle = sum(v[1] for v in kern.values()) / cycles
-    arb = sum(v[0] for k, v in kern.items() if "router_arbitrate" in k)
+    p2 = [v for k, v in kern.items() if P2_SYMBOL in k]
+    p2_ms, p2_count = sum(v[0] for v in p2), sum(v[1] for v in p2)
+    arb_count = sum(v[1] for k, v in kern.items() if "router_arbitrate" in k)
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:5]
     print(f"profile: 208x208 packed, {cycles} cycles: wall "
           f"{wall_ms / cycles:.3f} ms/cycle, device busy "
           f"{busy / cycles:.3f} ms/cycle (idle share "
           f"{1 - busy / wall_ms:.4f}), {launches_per_cycle:.1f} kernel "
-          f"launches/cycle, router_arbitrate {arb / cycles:.6f} ms/cycle")
+          f"launches/cycle, {P2_SYMBOL} {p2_ms / cycles:.6f} ms/cycle "
+          f"({p2_count / cycles:.1f}/cycle)")
     for name, (ms, count) in top:
         print(f"profile:   {ms / cycles:.6f} ms/cycle  "
               f"{count / cycles:.1f}/cycle  {name[:90]}")
-    return launches
+    if kern and (p2_count != cycles or arb_count):
+        fail(f"profile: {p2_count} {P2_SYMBOL} and {arb_count} "
+             f"router_arbitrate launches in {cycles} cycles, expected one "
+             f"fused launch a cycle and no other")
+    return launches, arb_launches
 
 
 def phase_build() -> None:
@@ -721,15 +942,16 @@ def main() -> None:
 
     phase_build()
     rec_k1 = phase_kernel(dev)
+    rec_p2 = phase_kernel_phase2(dev)
     rec_k2 = phase_kernel_k2(dev)
     phase_wedge(dev)
-    rec_k1["launches"] = phase_paper(dev)
+    rec_p2["launches"], rec_k1["launches"] = phase_paper(dev)
     cfg, params, rec_k2["launches"] = phase_lm_prefill(dev)
     phase_lm_decode(dev, cfg, params)
     phase_lm_serve(dev, cfg, params)
 
     print(card)
-    print(json.dumps({"kernels": [rec_k1, rec_k2]}))
+    print(json.dumps({"kernels": [rec_k1, rec_p2, rec_k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

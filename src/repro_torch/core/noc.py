@@ -4,9 +4,11 @@ The PyTorch counterpart of the JAX package's ``repro.core.noc``.
 
 Phase 2 (arbitration): per router — eject the oldest deliverable flit (S11),
 optionally admit an injection flit (S12), then assign output ports in
-age-priority order with PMDR preference lists (S9), deflecting losers.
-The port assignment is :func:`repro_torch.kernels.ops.arbitrate`: the
-hand-written CUDA kernel on the card, its plain version on the CPU.
+age-priority order with PMDR preference lists (S9), deflecting losers,
+and pop the send queue.  The whole phase is
+:func:`repro_torch.kernels.ops.phase2_router`: one launch of the
+hand-written fused router kernel on the card, its plain version on the
+CPU.
 
 Phase 3 (transfer): a pure gather — input port p of node n reads the
 opposite output port of its neighbour in direction p — then ``deliver``
@@ -22,8 +24,7 @@ from ..kernels import ops as kops
 from .cache import argmax, argmin, set_where, where
 from .config import SimConfig
 from .state import (
-    F_AGE, F_DST, F_NFL, F_OSRC, F_PKT, F_SRC, F_TAG, F_TYP, F_VALID,
-    I32, Q_DST, Q_NFL, Q_OSRC, Q_PKT, Q_TAG, Q_TYP,
+    F_NFL, F_OSRC, F_PKT, F_SRC, F_TAG, F_TYP, F_VALID, I32,
     R_CNT, R_NFL, R_OSRC, R_PKT, R_SRC, R_TAG, R_TYP,
     P_VALID, Geometry, NodeCtx, SimState, bump_all,
 )
@@ -40,110 +41,20 @@ class ArbResult(NamedTuple):
     n_injected: torch.Tensor
 
 
-def rob_accepts(s: SimState, flits: torch.Tensor) -> torch.Tensor:
-    """S10: (Nl, P) bool — can each flit be ejected into the ROB."""
-    nfl = flits[..., F_NFL]
-    src = flits[..., F_SRC]
-    pkt = flits[..., F_PKT]
-    rob_valid = s.rob[:, :, R_NFL] > 0                      # (Nl, K)
-    m = (rob_valid[:, None, :]
-         & (s.rob[:, None, :, R_SRC] == src[:, :, None])
-         & (s.rob[:, None, :, R_PKT] == pkt[:, :, None]))   # (Nl, P, K)
-    has_match = m.any(dim=-1)
-    has_free = (~rob_valid).any(dim=-1)
-    return (nfl == 1) | has_match | has_free[:, None]
-
-
 def phase2(s: SimState, cfg: SimConfig,
            ctx: NodeCtx) -> Tuple[SimState, ArbResult]:
-    dev = ctx.node_id.device
-    node, nid = ctx.node, ctx.node_id
-    vp = ctx.valid_port
-    ports = torch.arange(4, dtype=I32, device=dev)
-
-    inp = s.inp
-    valid_in = inp[:, :, F_VALID] > 0
-
-    # ---- ejection (S11): oldest (age desc, port asc) deliverable flit.
-    #      With an empty pending-completion queue any deliverable flit may
-    #      eject; once it is occupied, only flits aged past knob_ej_age
-    #      eject — into spare queue capacity while a slot is free, and
-    #      into a free ROB slot (the completion parks) when it is full.
-    #      pc_depth=1 keeps the paper's exact single-register bar. ----
-    acc = rob_accepts(s, inp)
-    pc_cnt = (s.pc[:, :, P_VALID] > 0).sum(dim=1, dtype=I32)
-    pc_empty = pc_cnt == 0
-    if cfg.pc_depth > 1:
-        pc_has_slot = pc_cnt < cfg.pc_depth
-        rob_free = (s.rob[:, :, R_NFL] == 0).any(dim=1)
-        # single-flit packets need a free ROB slot to park in; a
-        # completing multi-flit packet parks in its own (matched) slot
-        park_ok = (inp[:, :, F_NFL] > 1) | rob_free[:, None]
-        old_enough = inp[:, :, F_AGE] >= s.knob_ej_age
-        ej_ok = (pc_empty[:, None]
-                 | (old_enough & (pc_has_slot[:, None] | park_ok)))
-    else:
-        ej_ok = pc_empty[:, None]
-    want_ej = valid_in & (inp[:, :, F_DST] == nid[:, None]) & acc & ej_ok
-    ej_key = where(want_ej, inp[:, :, F_AGE] * 4 + (3 - ports), -1)
-    ej_port = argmax(ej_key)
-    has_ej = ej_key.amax(dim=1) >= 0
-    is_ej = (ports[None, :] == ej_port[:, None]) & has_ej[:, None]
-    remaining = valid_in & ~is_ej
-
-    # ---- injection (S12) ----
-    n_rem = remaining.sum(dim=1, dtype=I32)
-    n_vp = vp.sum(dim=1, dtype=I32)
-    qp = cfg.send_queue
-    head = s.q_desc[node, s.q_head % qp]                     # (Nl, 6)
-    can_inj = (s.q_size > 0) & (n_rem < n_vp)
-    inj = torch.stack([
-        can_inj.to(I32), torch.zeros_like(nid), nid, head[:, Q_DST],
-        head[:, Q_OSRC], head[:, Q_TYP], head[:, Q_TAG], head[:, Q_PKT],
-        s.q_fid, head[:, Q_NFL],
-    ], dim=-1)
-
-    cand = torch.cat([where(remaining[:, :, None], inp, 0),
-                      inj[:, None, :]], dim=1)
-    cand_valid = cand[:, :, F_VALID] > 0                     # (Nl, 5)
-
-    # ---- age-priority arbitration (paper Fig. 3 "Priority Sort" + port
-    #      selection): the CUDA kernel on the card, the plain version on
-    #      the CPU ----
-    dst = cand[:, :, F_DST]
-    dst_r = where(dst >= 0, dst // cfg.cols, 0)
-    dst_c = where(dst >= 0, dst % cfg.cols, 0)
-    dr_ = dst_r - ctx.node_r[:, None]
-    dc_ = dst_c - ctx.node_c[:, None]
-    wanted_eject = cand_valid & (dst == nid[:, None])
-    age = cand[:, :, F_AGE].contiguous()
-    assigned, deflect = kops.arbitrate(age, cand_valid, wanted_eject,
-                                       dc_, dr_, vp)
-
-    # ---- move candidates to their output ports: the ports are distinct,
-    #      so at most one candidate lands on each port (a gather) ----
-    cand = cand.clone()
-    cand[:, :, F_AGE] = age + deflect.to(I32)
-    oh = ((assigned[:, :, None] == ports[None, None, :])
-          & cand_valid[:, :, None])                          # (Nl, 5, 4)
-    taken = oh.any(dim=1)                                    # (Nl, 4)
-    out = where(taken[:, :, None], cand[node[:, None], argmax(oh)], 0)
-    out[:, :, F_VALID] = taken.to(I32)
-
-    # ---- pop the send queue on injection ----
-    injected = can_inj
-    q_fid = s.q_fid + injected.to(I32)
-    pkt_done = injected & (q_fid >= head[:, Q_NFL])
-    q_head = where(pkt_done, (s.q_head + 1) % qp, s.q_head)
-    q_size = where(pkt_done, s.q_size - 1, s.q_size)
-    q_fid = where(pkt_done, 0, q_fid)
-
-    n_defl = (deflect & cand_valid).sum(dtype=I32)
-    stats = bump_all(s.stats, [("injected", injected),
-                               ("deflections", n_defl)])
-    s = s._replace(q_head=q_head, q_size=q_size, q_fid=q_fid, stats=stats)
-    return s, ArbResult(out, ej_port, has_ej, n_defl,
-                        injected.sum(dtype=I32))
+    """Eject, inject, arbitrate and route for every router, then pop the
+    send queues and count injections and deflections: one launch of the
+    fused router kernel on the card, its plain version
+    (:func:`repro_torch.kernels.ref.phase2_router_ref`) on the CPU."""
+    r = kops.phase2_router(s.inp, s.rob, s.pc, s.q_desc, s.q_head, s.q_size,
+                           s.q_fid, ctx.node_id, ctx.node_r, ctx.node_c,
+                           ctx.valid_port, s.knob_ej_age, s.stats,
+                           cols=cfg.cols)
+    s = s._replace(q_head=r.q_head, q_size=r.q_size, q_fid=r.q_fid,
+                   stats=r.stats)
+    return s, ArbResult(r.out, r.ej_port, r.has_ej, r.n_deflected,
+                        r.n_injected)
 
 
 def transfer_global(geo: Geometry, out: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@
 Runs on the GPU unless ``--device cpu`` is given; without a GPU the
 default fails rather than falling back to the CPU.  Prints the run's
 statistics as JSON (the same keys as the JAX launcher's solo mode, plus
-``wall_s``, ``nodes``, ``device`` and ``arbitration_kernel_launches``).
+``wall_s``, ``nodes``, ``device`` and ``arbitration_kernel_launches``,
+the launches of the fused Phase-2 router kernel, which arbitrates).
 """
 from __future__ import annotations
 

@@ -18,7 +18,8 @@ from test_noc_properties import random_arb_case as jax_random_arb_case
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import arbitrate_ref, random_arb_case
-from repro_torch.kernels.router_phase import LAUNCHES, router_arbitrate_cuda
+from repro_torch.kernels.router_phase import (ARB_LAUNCHES,
+                                              router_arbitrate_cuda)
 
 torch.set_num_threads(1)
 
@@ -73,16 +74,16 @@ def test_arbitrate_ref_matches_pallas_interpret(n):
 
 def test_ops_dispatches_cpu_tensors_to_the_plain_version():
     arrs = torch_case(random_arb_case(np.random.default_rng(5), 50))
-    before = LAUNCHES.n
+    before = ARB_LAUNCHES.n
     a, d = ops.arbitrate(*arrs)
     ra, rd = arbitrate_ref(*arrs)
     assert torch.equal(a, ra) and torch.equal(d, rd)
-    assert LAUNCHES.n == before
+    assert ARB_LAUNCHES.n == before
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():
     arrs = torch_case(random_arb_case(np.random.default_rng(6), 8))
-    before = LAUNCHES.n
+    before = ARB_LAUNCHES.n
     with pytest.raises(ValueError, match="CUDA"):
         router_arbitrate_cuda(*arrs)
-    assert LAUNCHES.n == before
+    assert ARB_LAUNCHES.n == before

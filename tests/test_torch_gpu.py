@@ -19,8 +19,11 @@ from repro_torch.core.config import SimConfig
 from repro_torch.core.workloads import app_trace
 from repro_torch.kernels import flash_attention, ops
 from repro_torch.kernels.ref import (arbitrate_ref, attention_ref,
-                                     random_arb_case)
-from repro_torch.kernels.router_phase import LAUNCHES, router_arbitrate_cuda
+                                     phase2_router_ref, random_arb_case,
+                                     random_phase2_case)
+from repro_torch.kernels.router_phase import (ARB_LAUNCHES, LAUNCHES,
+                                              phase2_router_cuda,
+                                              router_arbitrate_cuda)
 from repro_torch.models import api
 
 pytestmark = pytest.mark.gpu
@@ -41,16 +44,16 @@ def case(seed, n, device):
 def test_kernel_bit_exact_against_plain_version(cuda):
     for seed, n in enumerate(list(range(1, 401)) + [127, 128, 129, 43_264]):
         args = case(seed, n, cuda)
-        before = LAUNCHES.n
+        before = ARB_LAUNCHES.n
         got_a, got_d = ops.arbitrate(*args)
-        assert LAUNCHES.n == before + 1
+        assert ARB_LAUNCHES.n == before + 1
         ref_a, ref_d = arbitrate_ref(*args)
         assert torch.equal(got_a, ref_a) and torch.equal(got_d, ref_d), n
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     args = case(0, 8, cuda)
-    before = LAUNCHES.n
+    before = ARB_LAUNCHES.n
     with pytest.raises(TypeError):
         router_arbitrate_cuda(args[0].to(torch.int64), *args[1:])
     with pytest.raises(ValueError):
@@ -59,6 +62,70 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         router_arbitrate_cuda(args[0].t().contiguous().t(), *args[1:])
     with pytest.raises(ValueError):
         router_arbitrate_cuda(args[0], args[1].cpu(), *args[2:])
+    assert ARB_LAUNCHES.n == before
+
+
+P2_ARGS = ("inp", "rob", "pc", "q_desc", "q_head", "q_size", "q_fid",
+           "node_id", "node_r", "node_c", "valid_port", "knob_ej_age",
+           "stats")
+
+
+def p2_case(seed, n, K, depth, qp, rows, cols):
+    a = random_phase2_case(np.random.default_rng(seed), n, K, depth, qp,
+                           rows, cols)
+    return {k: torch.from_numpy(a[k]) for k in P2_ARGS}
+
+
+def offset_view(t, n, off):
+    """``t`` again, as a contiguous view ``off`` routers into a larger
+    storage when its first axis is the routers' (16-byte alignment then
+    varies with the slab's width)."""
+    if off and t.dim() and t.shape[0] == n:
+        return torch.cat([t[:off], t])[off:]
+    return t
+
+
+P2_CASES = ([(n, 8, 4, 64, 4, 4, 0) for n in (1, 2, 3, 16, 31, 33)]
+            + [(n, 8, 4, 64, 16, 16, 0) for n in (127, 128, 129, 255, 256,
+                                                    257, 1000)]
+            + [(n, 8, 1, 64, 16, 16, 0) for n in (127, 128, 129)]
+            + [(129, 3, 2, 4, 5, 7, 0), (300, 8, 1, 16, 3, 5, 1),
+               (300, 8, 4, 16, 3, 5, 3), (43_264, 8, 4, 64, 208, 208, 0),
+               (43_264, 8, 1, 64, 208, 208, 0)])
+
+
+def test_phase2_kernel_bit_exact_against_plain_version(cuda):
+    """The fused kernel against the plain version run on CPU copies: tile
+    edges (127/128/129), pending depth 1 and 4, an odd ROB slab, views
+    that start off a 16-byte boundary, and the 208x208 mesh."""
+    for seed, (n, K, depth, qp, rows, cols, off) in enumerate(P2_CASES):
+        cpu = p2_case(seed, n, K, depth, qp, rows, cols)
+        card = {k: offset_view(t.to(cuda), n, off) for k, t in cpu.items()}
+        before = LAUNCHES.n
+        got = phase2_router_cuda(*(card[k] for k in P2_ARGS), cols=cols)
+        assert LAUNCHES.n == before + 1
+        want = phase2_router_ref(*(cpu[k] for k in P2_ARGS), cols=cols)
+        for name, g, w in zip(want._fields, got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, (n, name)
+            assert torch.equal(g.cpu(), w), (n, K, depth, off, name)
+
+
+def test_phase2_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args = {k: t.to(cuda) for k, t in p2_case(0, 40, 8, 4, 16, 5, 8).items()}
+    before = LAUNCHES.n
+    for name, bad, err in (
+            ("inp", args["inp"].to(torch.int64), TypeError),
+            ("valid_port", args["valid_port"].to(torch.uint8), TypeError),
+            ("rob", args["rob"][:, :4, :3].contiguous(), ValueError),
+            ("q_head", args["q_head"][:39], ValueError),
+            ("pc", args["pc"].transpose(1, 2).contiguous().transpose(1, 2),
+             ValueError),
+            ("stats", args["stats"].cpu(), ValueError)):
+        with pytest.raises(err, match=name):
+            phase2_router_cuda(*(bad if k == name else args[k]
+                                 for k in P2_ARGS), cols=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        phase2_router_cuda(*(args[k].cpu() for k in P2_ARGS), cols=8)
     assert LAUNCHES.n == before
 
 
@@ -68,8 +135,10 @@ def test_main_path_on_the_card_equals_the_cpu_run(cuda):
                     state_dtype_policy="packed")
     tr = app_trace(cfg, "mgrid", 20, 2)
     LAUNCHES.reset()
+    ARB_LAUNCHES.reset()
     got = sim.run(cfg, tr, chunk=16)              # default device: cuda
-    assert LAUNCHES.n > 0
+    # one fused Phase-2 launch a stepped cycle, no standalone arbitration
+    assert LAUNCHES.n > 0 and ARB_LAUNCHES.n == 0
     assert got == sim.run(cfg, tr, chunk=16, device="cpu")
     assert got["finished"] == 1
 
