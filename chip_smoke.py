@@ -44,6 +44,23 @@ caught:
    standalone arbitration; then a longer run at the same mesh is timed,
    and a window of it profiled (device busy share, launches a cycle, the
    fused kernel once a cycle by name);
+6b. sweep-208 — the multi-scenario front end at the paper's scale: a
+   ``run_sweep`` of 4 scenarios over paper-208's config (32 cycles;
+   seed 0 default knobs, seed 0 migration off, seed 1 ejection age
+   threshold 8, seed 1 migration threshold 1).  Scenario 0 must equal
+   ``BENCH_paper_scale.json`` ``raw.stats``, each scenario its solo
+   ``run`` on the card (``run_sequential``), with 4 x 32 fused Phase-2
+   launches and no standalone arbitration; prints ms per scenario-cycle
+   beside the solo runs' and paper-208's, and the peak device memory
+   beside the planner's ``plan_state_bytes``;
+6c. plan     — run beside zoo-cli (10, below), whose subprocesses start
+   just before it and are waited for just after: ``BENCH_plan.json``'s
+   smoke set (4x4 and 8x8, ``equake``,
+   seeds 0 and 1, 10 refs, distributed directory) through
+   ``compile_plan`` + ``execute_plan`` on the card: the plan describes
+   itself as the file's does (2 buckets), every scenario finishes, and
+   the aggregate network health equals the file's ``plan.net.*`` values
+   at their rounding;
 7. lm-prefill — tinyllama-1.1b at full width (22 layers, seeded random
    parameters from the port's own init, float32, bf16 compute), the
    prefill step at B=4, S=2048: K2 launches exactly 22 times, the logits
@@ -56,7 +73,12 @@ caught:
 9. lm-serve  — the continuous-batching ``Server`` answers 8 seeded
    requests with 4 slots, ``cache_len=256`` and ``max_new=16``, as
    ``python -m repro_torch.launch.serve`` does by default; timed, and
-   at reduced width its tokens equal the CPU run's.
+   at reduced width its tokens equal the CPU run's;
+10. zoo-cli  — the launcher as a user runs it, in subprocesses started
+   together beside the plan phase: ``--zoo patterns-tiny`` on the card and with ``--device
+   cpu`` (all 10 scenarios finish, the payloads' statistics and plans
+   equal), and ``--serial`` (the numpy golden model) against the card's
+   solo run of the same flags.
 
 The two lines before the last are the card (as ``nvidia-smi`` gives it)
 and one JSON object with the three kernels' numbers (K1 alone, the fused
@@ -166,6 +188,25 @@ DECODE_PROMPT = 128
 #: tests/test_archs.py::test_decode_matches_forward)
 DECODE_AGREE = 0.9
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_CACHE, SERVE_NEW = 8, 4, 256, 16
+
+#: sweep-208's scenarios: (seed, knob overrides); scenario 0 is paper-208
+SWEEP_SCENARIOS = ((0, {}), (0, {"migration_enabled": False}),
+                   (1, {"eject_age_threshold": 8}),
+                   (1, {"migrate_threshold": 1}))
+#: BENCH_plan.json's smoke set (benchmarks/plan_throughput.py --smoke)
+PLAN_MESHES, PLAN_SEEDS, PLAN_APP, PLAN_REFS = (((4, 4), (8, 8)), (0, 1),
+                                               "equake", 10)
+PLAN_MAX_CYCLES, PLAN_CHUNK = 20_000, 8
+#: the network-health values BENCH_plan.json gates, with the rounding
+#: repro.bench.collect.health_metrics gives them (None: an exact count)
+PLAN_NET = {"deflection_rate": 6, "hops_per_flit": 4,
+            "deflections_per_flit": 4, "drops_recovered": None,
+            "stray_responses": None}
+ZOO_FAMILY = "patterns-tiny"
+SERIAL_FLAGS = ["--rows", "4", "--cols", "4", "--app", "matmul", "--refs",
+                "12"]
+#: seconds each launcher subprocess may take
+CLI_TIMEOUT = 900
 
 
 def fail(msg: str) -> None:
@@ -491,7 +532,8 @@ def phase_wedge(dev) -> None:
 def phase_paper(dev):
     """208x208 packed 32-cycle run against the JAX package's baseline;
     returns the launches of the fused Phase-2 kernel and of the
-    standalone arbitration in that run."""
+    standalone arbitration in that run, and the timed run's ms a
+    cycle."""
     import torch
     from repro_torch.core.config import SimConfig
     from repro_torch.core.sim import VectorSim, run
@@ -573,7 +615,134 @@ def phase_paper(dev):
         fail(f"profile: {p2_count} {P2_SYMBOL} and {arb_count} "
              f"router_arbitrate launches in {cycles} cycles, expected one "
              f"fused launch a cycle and no other")
-    return launches, arb_launches
+    return launches, arb_launches, wall_t / got_t["cycles"] * 1e3
+
+
+def _diff(want, got) -> dict:
+    return {k: (want.get(k), got.get(k)) for k in set(want) | set(got)
+            if want.get(k) != got.get(k)}
+
+
+def phase_sweep(dev, paper_ms: float) -> int:
+    """Four scenarios of paper-208 in one ``run_sweep``; returns the fused
+    Phase-2 launches of the sweep."""
+    import torch
+    from repro_torch.core.config import SimConfig
+    from repro_torch.core.engine import plan_state_bytes
+    from repro_torch.core.sweep import (ScenarioSpec, SweepSpec,
+                                        run_sequential, run_sweep)
+    from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
+
+    with open(os.path.join(ROOT, "BENCH_paper_scale.json")) as f:
+        want0 = json.load(f)["raw"]["stats"]
+    cfg = SimConfig(rows=208, cols=208, max_cycles=PAPER_CYCLES,
+                    centralized_directory=False, dir_layout="home",
+                    state_dtype_policy="packed")
+    spec = SweepSpec(cfg, tuple(ScenarioSpec("random", seed, 8, **kw)
+                                for seed, kw in SWEEP_SCENARIOS))
+    b = spec.size
+    spec.traces()                      # host set-up, outside the timing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev)
+    LAUNCHES.reset()
+    ARB_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    got = run_sweep(spec, max_cycles=PAPER_CYCLES, chunk=PAPER_CYCLES,
+                    device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, arb_launches = LAUNCHES.n, ARB_LAUNCHES.n
+    peak = torch.cuda.max_memory_allocated(dev) - base_mem
+    if got[0] != want0:
+        fail(f"sweep-208: scenario 0 differs from BENCH_paper_scale.json: "
+             f"{_diff(want0, got[0])}")
+    if launches != b * PAPER_CYCLES or arb_launches:
+        fail(f"sweep-208: {launches} fused Phase-2 launches and "
+             f"{arb_launches} standalone arbitrations, expected "
+             f"{b * PAPER_CYCLES} and 0")
+    t0 = time.perf_counter()
+    solo = run_sequential(spec, max_cycles=PAPER_CYCLES, chunk=PAPER_CYCLES,
+                          device=dev)
+    torch.cuda.synchronize()
+    solo_wall = time.perf_counter() - t0
+    for i, (g, w) in enumerate(zip(got, solo)):
+        if g != w:
+            fail(f"sweep-208: scenario {i} differs from its solo run on the "
+                 f"card: {_diff(w, g)}")
+    plan_bytes = plan_state_bytes(cfg, b, "sweep", (1, 1, 1), 1,
+                                  trace_len=spec.traces().shape[-1])
+    per = wall / (b * PAPER_CYCLES) * 1e3
+    solo_per = solo_wall / (b * PAPER_CYCLES) * 1e3
+    for i, g in enumerate(got):
+        print(f"sweep-208: scenario {i} {SWEEP_SCENARIOS[i]}: "
+              f"{g['flits_delivered']} flits delivered, {g['hops']} hops, "
+              f"{g['migrations']} migrations == its solo run")
+    distinct = len({json.dumps(g, sort_keys=True) for g in got})
+    print(f"sweep-208: {b} scenarios x {PAPER_CYCLES} cycles ({distinct} "
+          f"distinct results), scenario 0 == "
+          f"BENCH_paper_scale.json raw.stats; fused Phase-2 launches "
+          f"{launches}, standalone arbitration {arb_launches}; "
+          f"{wall:.3f} s set-up included: {per:.3f} ms per scenario-cycle "
+          f"(solo runs of the same scenarios {solo_per:.3f}, paper-208's "
+          f"timed run {paper_ms:.3f} ms a cycle); peak device memory "
+          f"{peak} B over the {base_mem} B held before, "
+          f"plan_state_bytes {plan_bytes} B (peak / plan "
+          f"{peak / plan_bytes:.3f}); card: {card_line()}")
+    return launches
+
+
+def phase_plan(dev) -> int:
+    """BENCH_plan.json's smoke set through the planner on the card;
+    returns the fused Phase-2 launches of the plan's run."""
+    import torch
+    from repro_torch.core.config import SimConfig
+    from repro_torch.core.engine import (compile_plan, execute_plan,
+                                         make_scenario)
+    from repro_torch.core.sim import aggregate_stats, network_health
+    from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
+
+    with open(os.path.join(ROOT, "BENCH_plan.json")) as f:
+        bench = json.load(f)
+    want_net = {m["name"].split(".")[-1]: m["value"] for m in bench["metrics"]
+                if m["name"].startswith("plan.net.")}
+    base = SimConfig(centralized_directory=False, max_cycles=PLAN_MAX_CYCLES)
+    scenarios = [make_scenario(base, r, c, PLAN_APP, seed, PLAN_REFS)
+                 for r, c in PLAN_MESHES for seed in PLAN_SEEDS]
+    plan = compile_plan(scenarios)
+    desc = plan.describe()
+    if desc != bench["raw"]["planned_sweep"]["plan"] or desc["n_buckets"] != 2:
+        fail(f"plan: {desc} differs from BENCH_plan.json's plan "
+             f"{bench['raw']['planned_sweep']['plan']}")
+    LAUNCHES.reset()
+    ARB_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    got = execute_plan(plan, chunk=PLAN_CHUNK, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, arb_launches = LAUNCHES.n, ARB_LAUNCHES.n
+    if not all(g["finished"] == 1 for g in got):
+        fail(f"plan: not every scenario finished: {got}")
+    steps = sum(b.batch * max(got[i]["cycles"] for i in b.indices)
+                for b in plan.buckets)
+    if not steps <= launches < steps + len(got) * PLAN_CHUNK or arb_launches:
+        fail(f"plan: {launches} fused Phase-2 launches and {arb_launches} "
+             f"standalone arbitrations, expected one a scenario-step "
+             f"({steps}) and none")
+    net = network_health(aggregate_stats(got))
+    for key, places in PLAN_NET.items():
+        val = net[key] if places is None else round(net[key], places)
+        if val != want_net[key]:
+            fail(f"plan: {key} {val} differs from BENCH_plan.json's "
+                 f"{want_net[key]}")
+    print(f"plan: {len(got)} scenarios in {desc['n_buckets']} buckets "
+          f"({[(b['rows'], b['cols'], b['batch']) for b in desc['buckets']]}"
+          f"), plan == BENCH_plan.json's, all finished (cycles "
+          f"{[g['cycles'] for g in got]}); network health "
+          f"{ {k: net[k] for k in PLAN_NET} } == BENCH_plan.json plan.net.* "
+          f"at its rounding; fused Phase-2 launches {launches}, standalone "
+          f"arbitration {arb_launches}; {wall:.3f} s")
+    return launches
 
 
 def phase_build() -> None:
@@ -926,6 +1095,100 @@ def phase_lm_serve(dev, cfg, params) -> None:
           f"CPU's for all {len(on_card)} requests")
 
 
+#: payload keys that only the port prints, or that measure the host
+CLI_OWN_KEYS = ("wall_s", "scenarios_per_sec", "device",
+                "arbitration_kernel_launches")
+
+
+def stop(procs: dict) -> None:
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_zoo_cli() -> dict:
+    """Start zoo-cli's four launcher subprocesses together: the zoo on the
+    card and on the CPU, a solo run on the card and the serial golden
+    model."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    runs = {"zoo card": ["--zoo", ZOO_FAMILY],
+            "zoo cpu": ["--zoo", ZOO_FAMILY, "--device", "cpu"],
+            "solo card": SERIAL_FLAGS,
+            "serial": SERIAL_FLAGS + ["--serial"]}
+    procs = {}
+    try:
+        for name, args in runs.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.simulate", *args],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+    except BaseException:
+        stop(procs)
+        raise
+    return procs
+
+
+def phase_zoo_cli(procs: dict, t0: float) -> None:
+    """Wait for each of zoo-cli's subprocesses (started at ``t0``) and
+    check what they printed; the caller stops the rest on a failure."""
+    out = {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            fail(f"zoo-cli: {name} ran past {CLI_TIMEOUT} s")
+        if proc.returncode != 0:
+            fail(f"zoo-cli: {name} exited {proc.returncode}: "
+                 f"{stderr[-2000:]}")
+        out[name] = json.loads(stdout)
+        print(f"zoo-cli: {name} done {time.perf_counter() - t0:.1f} s after "
+              f"the start (its run {out[name]['wall_s']} s)")
+
+    card, cpu = out["zoo card"], out["zoo cpu"]
+    n = card["n_scenarios"]
+    if n != 10 or not all(s["finished"] == 1 for s in card["scenarios"]):
+        fail(f"zoo-cli: {n} scenarios, finished "
+             f"{[s['finished'] for s in card['scenarios']]}")
+    mine = lambda p: {k: v for k, v in p.items() if k not in CLI_OWN_KEYS}
+    if mine(card) != mine(cpu):
+        diffs = [_diff(c, g) for c, g in zip(cpu["scenarios"],
+                                             card["scenarios"])]
+        fail(f"zoo-cli: the card's payload differs from the CPU's: {diffs}")
+    steps = card["arbitration_kernel_launches"] // n
+    longest = max(s["cycles"] for s in card["scenarios"])
+    if card["device"] != "cuda" or cpu["arbitration_kernel_launches"] or \
+            card["arbitration_kernel_launches"] % n or \
+            not longest <= steps < longest + 8:
+        fail(f"zoo-cli: card run on {card['device']} with "
+             f"{card['arbitration_kernel_launches']} fused launches for {n} "
+             f"scenarios of up to {longest} cycles; CPU run "
+             f"{cpu['arbitration_kernel_launches']}")
+    print(f"zoo-cli: --zoo {ZOO_FAMILY}: {n} scenarios in "
+          f"{card['plan']['n_buckets']} bucket, all finished (up to "
+          f"{longest} cycles), card payload == CPU payload; fused Phase-2 "
+          f"launches {card['arbitration_kernel_launches']}; card "
+          f"{card['wall_s']} s, CPU {cpu['wall_s']} s (one thread)")
+    solo, serial = out["solo card"], out["serial"]
+    want = {k: v for k, v in serial.items() if k != "wall_s"}
+    if {k: solo.get(k) for k in want} != want or solo["device"] != "cuda":
+        fail(f"zoo-cli: --serial differs from the card's solo run: "
+             f"{_diff(want, solo)}")
+    print(f"zoo-cli: --serial {' '.join(SERIAL_FLAGS)} == the card's solo "
+          f"run ({solo['cycles']} cycles, backend {solo['backend']}, fused "
+          f"Phase-2 launches {solo['arbitration_kernel_launches']}); serial "
+          f"{serial['wall_s']} s, card {solo['wall_s']} s")
+
+
+def timed(name: str, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    res = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -940,15 +1203,32 @@ def main() -> None:
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})")
 
-    phase_build()
-    rec_k1 = phase_kernel(dev)
-    rec_p2 = phase_kernel_phase2(dev)
-    rec_k2 = phase_kernel_k2(dev)
-    phase_wedge(dev)
-    rec_p2["launches"], rec_k1["launches"] = phase_paper(dev)
-    cfg, params, rec_k2["launches"] = phase_lm_prefill(dev)
-    phase_lm_decode(dev, cfg, params)
-    phase_lm_serve(dev, cfg, params)
+    timed("build", phase_build)
+    rec_k1 = timed("kernel", phase_kernel, dev)
+    rec_p2 = timed("kernel-phase2", phase_kernel_phase2, dev)
+    rec_k2 = timed("kernel-K2", phase_kernel_k2, dev)
+    timed("wedge", phase_wedge, dev)
+    paper_launches, rec_k1["launches"], paper_ms = timed(
+        "paper", phase_paper, dev)
+    sweep_launches = timed("sweep-208", phase_sweep, dev, paper_ms)
+    # zoo-cli's subprocesses run beside the plan phase (neither is timed
+    # for a claim); both end before the timed LM phases
+    t_zoo = time.perf_counter()
+    zoo = start_zoo_cli()
+    try:
+        plan_launches = timed("plan", phase_plan, dev)
+        timed("zoo-cli", phase_zoo_cli, zoo, t_zoo)
+    finally:
+        stop(zoo)
+    # the fused kernel's main paths: paper-208's run and the sweep's
+    rec_p2["launches"] = paper_launches + sweep_launches
+    print(f"launches: phase2_router {paper_launches} (paper-208) + "
+          f"{sweep_launches} (sweep-208) = {rec_p2['launches']}; the plan's "
+          f"run {plan_launches}; router_arbitrate {rec_k1['launches']}")
+    cfg, params, rec_k2["launches"] = timed("lm-prefill", phase_lm_prefill,
+                                            dev)
+    timed("lm-decode", phase_lm_decode, dev, cfg, params)
+    timed("lm-serve", phase_lm_serve, dev, cfg, params)
 
     print(card)
     print(json.dumps({"kernels": [rec_k1, rec_p2, rec_k2]}))

@@ -143,6 +143,26 @@ def test_main_path_on_the_card_equals_the_cpu_run(cuda):
     assert got["finished"] == 1
 
 
+def test_sweep_knob_views_on_the_card_equal_solo_runs(cuda):
+    """A 16x16 sweep whose scenarios differ only in the ejection age
+    threshold: the fused kernel reads each scenario's knob through a 0-d
+    view at offset b of a (3,) tensor.  Each scenario equals its solo run
+    on the card (the wedge workload, capped at 600 cycles, where the
+    three thresholds give three different runs)."""
+    from repro_torch.core import sweep
+    cfg = SimConfig(rows=16, cols=16, centralized_directory=False,
+                    max_cycles=600)
+    spec = sweep.SweepSpec(cfg, tuple(
+        sweep.ScenarioSpec("loop:matmul", 0, 20, eject_age_threshold=e)
+        for e in (0, 4, 8)))
+    LAUNCHES.reset()
+    ARB_LAUNCHES.reset()
+    got = sweep.run_sweep(spec, chunk=32)             # default device: cuda
+    assert LAUNCHES.n == 3 * 600 and ARB_LAUNCHES.n == 0
+    assert got == sweep.run_sequential(spec, chunk=32)
+    assert len({g["send_drop"] for g in got}) == 3
+
+
 @pytest.mark.parametrize("b,h,kv,s,d,dtype,causal,t", [
     (1, 2, 2, 256, 64, torch.float32, True, None),
     (2, 1, 1, 128, 128, torch.bfloat16, True, None),

@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_no_repro():
         "repro_torch.models.common, repro_torch.models.zoo, "
         "repro_torch.models.api, repro_torch.configs.registry, "
         "repro_torch.serve.server, repro_torch.launch.serve, "
-        "repro_torch.train.step\n"
+        "repro_torch.train.step, repro_torch.core.sweep, "
+        "repro_torch.core.engine, repro_torch.core.zoo, "
+        "repro_torch.core.ref_serial, repro_torch.core.trace\n"
         "from repro_torch.configs import registry\n"
         "[registry.get(a) for a in registry.ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -52,6 +54,23 @@ def test_port_imports_no_jax_and_no_repro():
     out = _py("-c", code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_core_package_import_stays_light():
+    """``repro_torch.core`` resolves its names lazily: importing it, the
+    planner and the zoo pulls in no torch; a name pulls in its module."""
+    code = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "import repro_torch.core as c, repro_torch.core.engine, "
+        "repro_torch.core.zoo\n"
+        "print('torch' in sys.modules, end=' ')\n"
+        "c.execute_plan, c.expand_zoo, c.load_manifest\n"
+        "print('torch' in sys.modules, end=' ')\n"
+        "print(c.run.__module__, sorted(c.__all__) == c.__all__)\n" % SRC)
+    out = _py("-c", code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False", "repro_torch.core.sim",
+                                  "True"], out.stdout
 
 
 def test_no_source_mentions_a_jax_or_repro_import():
