@@ -79,6 +79,20 @@ caught:
    cpu`` (all 10 scenarios finish, the payloads' statistics and plans
    equal), and ``--serial`` (the numpy golden model) against the card's
    solo run of the same flags.
+11. lm-train — LM training on the einsum attention route (K2 has no
+   backward and is never launched by a train step): (a) tinyllama-1.1b
+   at full width, float32 compute, B=1 S=128, one step's loss, grad norm
+   and per-leaf gradients on the card against the same step on this
+   machine's CPU; (b) the launcher's defaults at full width (B=8 S=256,
+   bf16 compute, remat, ``DataSource`` seed 0), 8 steps through
+   ``make_train_step``: finite losses, ms a step, tokens/s, model FLOP
+   utilisation against ``models.costs.cell_flops``, peak memory, one
+   profiled step (launches, device busy, idle share), K2 launches 0;
+   (c) at reduced width, the ``Trainer`` checkpointed at step 6 and
+   resumed to 12 equals an uninterrupted 12-step run bit for bit, and
+   ``python -m repro_torch.launch.train --arch tinyllama-1.1b --reduced
+   --steps 12`` in a subprocess ends at the same loss, lower than the
+   first.
 
 The two lines before the last are the card (as ``nvidia-smi`` gives it)
 and one JSON object with the three kernels' numbers (K1 alone, the fused
@@ -188,6 +202,22 @@ DECODE_PROMPT = 128
 #: tests/test_archs.py::test_decode_matches_forward)
 DECODE_AGREE = 0.9
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_CACHE, SERVE_NEW = 8, 4, 256, 16
+
+#: lm-train (a): full width, float32, card against CPU
+TRAIN_CMP_BATCH, TRAIN_CMP_SEQ = 1, 128
+#: tolerances, card against CPU, of one float32 step at full width: the
+#: same float32 arithmetic in another summation order (cuBLAS against the
+#: CPU's GEMMs, TF32 off) through 22 layers and back: loss relative,
+#: grad norm relative, and each leaf's max |difference| over its max
+#: |gradient|
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4, 1e-3
+#: lm-train (b): the launcher's defaults, timed over TRAIN_STEPS steps
+#: after TRAIN_WARMUP
+TRAIN_STEPS, TRAIN_WARMUP = 8, 2
+#: lm-train (c): the reduced-width run and its interruption
+TRAIN_CLI_STEPS, TRAIN_CUT = 12, 6
+#: the H100's dense bf16 tensor-core peak (data sheet, 700 W)
+BF16_FLOPS_PER_S = 989e12
 
 #: sweep-208's scenarios: (seed, knob overrides); scenario 0 is paper-208
 SWEEP_SCENARIOS = ((0, {}), (0, {"migration_enabled": False}),
@@ -1095,6 +1125,199 @@ def phase_lm_serve(dev, cfg, params) -> None:
           f"CPU's for all {len(on_card)} requests")
 
 
+def _train_grads_card_vs_cpu(dev, cfg, params) -> None:
+    """lm-train (a): one float32 step's loss, grad norm and gradients at
+    full width, on the card and on the CPU."""
+    import torch
+    from repro_torch.train import optim, step
+    from repro_torch.train.data import DataConfig, DataSource, DataState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    batch = DataSource(DataConfig(batch=TRAIN_CMP_BATCH, seq=TRAIN_CMP_SEQ),
+                       cfg32).batch_at(DataState(0))
+    t0 = time.perf_counter()
+    loss_d, g_d = step.value_and_grad(cfg32, params, batch)
+    gn_d = float(optim.global_norm(g_d))
+    loss_d = float(loss_d)
+    card_s = time.perf_counter() - t0
+    on_cpu = optim.tree_map(lambda t: t.cpu(), params)
+    t0 = time.perf_counter()
+    loss_h, g_h = step.value_and_grad(cfg32, on_cpu, batch, device="cpu")
+    gn_h = float(optim.global_norm(g_h))
+    loss_h = float(loss_h)
+    cpu_s = time.perf_counter() - t0
+    if not (abs(loss_d - loss_h) <= TRAIN_LOSS_RTOL * abs(loss_h) and
+            abs(gn_d - gn_h) <= TRAIN_GNORM_RTOL * gn_h):
+        fail(f"lm-train: full-width float32 step, card loss {loss_d} grad "
+             f"norm {gn_d}, CPU {loss_h}, {gn_h}")
+    worst = 0.0
+    for (path, a), (_, b) in zip(optim.tree_items(g_d),
+                                 optim.tree_items(g_h)):
+        rel = float((a.cpu() - b).abs().max() / b.abs().max())
+        if not rel <= TRAIN_GRAD_RTOL:
+            fail(f"lm-train: gradient of {'.'.join(path)}: card vs CPU max "
+                 f"|diff| {rel} of its max (tolerance {TRAIN_GRAD_RTOL})")
+        worst = max(worst, rel)
+    print(f"lm-train: {LM_ARCH} full width, float32, B={TRAIN_CMP_BATCH} "
+          f"S={TRAIN_CMP_SEQ}, one step on the card ({card_s:.3f} s, first "
+          f"call) vs the CPU ({cpu_s:.1f} s, {torch.get_num_threads()} "
+          f"threads): loss {loss_d!r} vs {loss_h!r} (rel "
+          f"{abs(loss_d - loss_h) / loss_h:.3e}), grad norm {gn_d!r} vs "
+          f"{gn_h!r} (rel {abs(gn_d - gn_h) / gn_h:.3e}), worst leaf "
+          f"gradient max |diff| / max {worst:.3e} over "
+          f"{sum(1 for _ in optim.tree_items(g_d))} leaves (tolerances "
+          f"{TRAIN_LOSS_RTOL}, {TRAIN_GNORM_RTOL}, {TRAIN_GRAD_RTOL})")
+
+
+def _train_timed(dev, cfg, params) -> None:
+    """lm-train (b): the launcher's defaults at full width, timed."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import costs
+    from repro_torch.train import optim, step
+    from repro_torch.train.data import DataSource, DataState
+
+    # PyTorch's default (lm-prefill turned it off for its comparisons)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    # the configurations the launcher trains with by default (building the
+    # Trainer allocates nothing)
+    dflt = train_cli.build_trainer(train_cli.build_parser().parse_args(
+        ["--arch", LM_ARCH]))
+    if dflt.mcfg != cfg:
+        fail(f"lm-train: the launcher's model config {dflt.mcfg} is not "
+             f"the one the phases share, {cfg}")
+    opt, batch_n, seq = dflt.ocfg, dflt.dcfg.batch, dflt.dcfg.seq
+    data = DataSource(dflt.dcfg, cfg)
+    fn = step.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = {"p": params, "o": optim.init_opt(opt, params), "i": 0}
+
+    def one():
+        batch = data.batch_at(DataState(state["i"]))
+        state["p"], state["o"], m = fn(state["p"], state["o"], batch)
+        state["i"] += 1
+        return m
+
+    LAUNCHES.reset()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = one()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    k2 = LAUNCHES.n
+    peak = torch.cuda.max_memory_allocated()
+    if k2 != 0:
+        fail(f"lm-train: the train steps launched K2 {k2} times")
+    if not all(np.isfinite(losses)):
+        fail(f"lm-train: losses {losses}")
+    ms = sum(times[TRAIN_WARMUP:]) / (TRAIN_STEPS - TRAIN_WARMUP)
+    flops = costs.cell_flops(cfg, "train", batch_n, seq)
+    print(f"lm-train: {LM_ARCH} full width, bf16 compute, remat "
+          f"{cfg.remat}, B={batch_n} S={seq}, {TRAIN_STEPS} steps "
+          f"through make_train_step: losses {[round(x, 4) for x in losses]}; "
+          f"K2 launches {k2}")
+    print(f"lm-train: step ms {[round(t, 3) for t in times]}; {ms:.3f} ms a "
+          f"step after {TRAIN_WARMUP} warm-up steps, "
+          f"{batch_n * seq / ms * 1e3:.1f} tokens/s, "
+          f"{flops:.4e} FLOP a step (models.costs.cell_flops), MFU "
+          f"{flops / (ms / 1e3) / BF16_FLOPS_PER_S:.4f} of "
+          f"{BF16_FLOPS_PER_S:.0f} FLOP/s; peak device memory {peak} B "
+          f"({held} B held before the steps)")
+    wall, kern = device_profile(one, 1)
+    busy = sum(v[0] for v in kern.values())
+    print(f"lm-train profile: one step, wall {wall:.3f} ms (under the "
+          f"profiler), device busy {busy:.3f} ms (idle share "
+          f"{1 - busy / wall:.4f}), "
+          f"{sum(v[1] for v in kern.values())} kernel launches")
+    for name, (t, count) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"lm-train profile:   {t:.3f} ms  {count}x  {name[:90]}")
+    # the step's two halves apart: the gradient, and AdamW on it
+    batch = data.batch_at(DataState(0))
+    _, grads = step.value_and_grad(cfg, state["p"], batch)
+    for what, fn in (("value_and_grad", lambda: step.value_and_grad(
+            cfg, state["p"], batch)),
+                     ("apply_updates", lambda: optim.apply_updates(
+                         opt, state["p"], grads, state["o"]))):
+        ms_call = event_ms(fn, 3)
+        wall, kern = device_profile(fn, 1)
+        busy = sum(v[0] for v in kern.values())
+        print(f"lm-train profile: {what} alone: {ms_call:.3f} ms a call "
+              f"(CUDA events), device busy {busy:.3f} ms, "
+              f"{sum(v[1] for v in kern.values())} kernel launches, idle "
+              f"share {1 - busy / wall:.4f} (under the profiler)")
+
+
+def _train_reduced(dev) -> None:
+    """lm-train (c): restart-exactness and the launcher, reduced width."""
+    import ast
+    import tempfile
+
+    import torch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.optim import tree_items
+
+    with tempfile.TemporaryDirectory() as tmp:
+        flags = ["--arch", LM_ARCH, "--reduced", "--steps",
+                 str(TRAIN_CLI_STEPS)]
+        whole = train_cli.build_trainer(train_cli.build_parser().parse_args(
+            flags + ["--ckpt-dir", os.path.join(tmp, "whole")]))
+        whole.run()
+        cut = lambda steps, resume, every: Trainer(
+            whole.mcfg, whole.ocfg, whole.dcfg, dataclasses.replace(
+                whole.lcfg, steps=steps, ckpt_dir=os.path.join(tmp, "cut"),
+                ckpt_every=every, resume=resume))
+        cut(TRAIN_CUT, False, TRAIN_CUT).run()
+        resumed = cut(TRAIN_CLI_STEPS, True, 1000)
+        resumed.run()
+        if resumed.metrics_log[0]["step"] != TRAIN_CUT:
+            fail(f"lm-train: the resumed run began at step "
+                 f"{resumed.metrics_log[0]['step']}, not {TRAIN_CUT}")
+        for tree_a, tree_b in ((whole.params, resumed.params),
+                               (whole.opt_state._asdict(),
+                                resumed.opt_state._asdict())):
+            for (path, a), (_, b) in zip(tree_items(tree_a),
+                                         tree_items(tree_b)):
+                if not torch.equal(a, b):
+                    fail(f"lm-train: resumed {'.'.join(path)} differs from "
+                         f"the uninterrupted run's by "
+                         f"{float((a.float() - b.float()).abs().max())}")
+        first = whole.metrics_log[0]["loss"]
+        final = whole.metrics_log[-1]["loss"]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *flags,
+             "--ckpt-dir", os.path.join(tmp, "cli")], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        if proc.returncode != 0:
+            fail(f"lm-train: the launcher exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        done = proc.stdout.strip().splitlines()[-1]
+        out = ast.literal_eval(done.split("[train] done: ", 1)[1])
+        if out["final_loss"] != final or not final < first or \
+                out["steps"] != TRAIN_CLI_STEPS:
+            fail(f"lm-train: launcher {done!r}; in-process first loss "
+                 f"{first!r}, final {final!r}")
+    print(f"lm-train: reduced width on the card: checkpointed at step "
+          f"{TRAIN_CUT} and resumed to {TRAIN_CLI_STEPS}, parameters and "
+          f"optimizer state equal the uninterrupted run's bit for bit; "
+          f"the launcher ({done}) ends at the in-process loss {final!r}, "
+          f"below the first {first!r}")
+
+
+def phase_lm_train(dev, cfg, params) -> None:
+    _train_grads_card_vs_cpu(dev, cfg, params)
+    _train_timed(dev, cfg, params)
+    _train_reduced(dev)
+
+
 #: payload keys that only the port prints, or that measure the host
 CLI_OWN_KEYS = ("wall_s", "scenarios_per_sec", "device",
                 "arbitration_kernel_launches")
@@ -1229,6 +1452,7 @@ def main() -> None:
                                             dev)
     timed("lm-decode", phase_lm_decode, dev, cfg, params)
     timed("lm-serve", phase_lm_serve, dev, cfg, params)
+    timed("lm-train", phase_lm_train, dev, cfg, params)
 
     print(card)
     print(json.dumps({"kernels": [rec_k1, rec_p2, rec_k2]}))

@@ -7,7 +7,11 @@ neither side imports the other:
 side, :func:`state_from_numpy` here, and back with :func:`state_to_numpy`.
 LM parameters and decode caches cross as the nested dict of the JAX
 package's tree with every leaf converted by ``np.asarray``
-(:func:`params_from_numpy`, :func:`cache_from_numpy` and back).  Every
+(:func:`params_from_numpy`, :func:`cache_from_numpy` and back).  An
+optimizer state crosses as the mapping of the JAX package's ``OptState``
+fields, ``jax.tree.map(np.asarray, opt_state)._asdict()``
+(:func:`opt_state_from_numpy` and back; on the JAX side
+``OptState(**tree)``).  Every
 leaf keeps its shape, dtype and values; bfloat16 leaves are numpy arrays
 of ``ml_dtypes.bfloat16``, as JAX gives them.
 """
@@ -21,6 +25,9 @@ import torch
 from .core.state import SimState
 from .models.api import abstract_params, init_cache
 from .models.config import ModelConfig
+from .models.params import abstract_leaf
+from .models.zoo import param_tree
+from .train.optim import OptConfig, OptState, tree_map
 
 
 def state_from_numpy(leaves: Mapping[str, np.ndarray], device) -> SimState:
@@ -83,8 +90,7 @@ def _tree_from_numpy(tree: Mapping[str, Any], like: Mapping[str, Any],
 
 
 def _tree_to_numpy(tree: Mapping[str, Any]) -> Dict[str, Any]:
-    return {k: _tree_to_numpy(v) if isinstance(v, Mapping)
-            else _tensor_to_numpy(v) for k, v in tree.items()}
+    return tree_map(_tensor_to_numpy, tree)
 
 
 def params_from_numpy(tree: Mapping[str, Any], device,
@@ -114,3 +120,29 @@ def cache_from_numpy(tree: Mapping[str, Any], device,
 def cache_to_numpy(cache: Mapping[str, Any]) -> Dict[str, Any]:
     """The port's decode cache with numpy leaves (on the host)."""
     return _tree_to_numpy(cache)
+
+
+def opt_state_from_numpy(tree: Mapping[str, Any], device, cfg: ModelConfig,
+                         opt: OptConfig) -> OptState:
+    """A port ``OptState`` on ``device`` from the JAX package's
+    ``OptState`` fields (``mu``, ``nu``, ``step``) with numpy leaves:
+    the moments have the parameter tree of ``cfg`` in
+    ``opt.moment_dtype``, the step is a 0-d int32."""
+    if set(tree) != set(OptState._fields):
+        raise ValueError(f"optimizer state has fields {sorted(tree)}, "
+                         f"expected {list(OptState._fields)}")
+    like = param_tree(cfg, abstract_leaf(getattr(torch, opt.moment_dtype)))
+    step = _tensor_from_numpy(tree["step"], device)
+    if step.shape != () or step.dtype != torch.int32:
+        raise ValueError(f"step is {step.dtype} {tuple(step.shape)}, "
+                         f"expected a 0-d int32")
+    return OptState(_tree_from_numpy(tree["mu"], like, device, "['mu']"),
+                    _tree_from_numpy(tree["nu"], like, device, "['nu']"),
+                    step)
+
+
+def opt_state_to_numpy(st: OptState) -> Dict[str, Any]:
+    """The port's ``OptState`` as a mapping of its fields with numpy
+    leaves (on the host)."""
+    return {"mu": _tree_to_numpy(st.mu), "nu": _tree_to_numpy(st.nu),
+            "step": _tensor_to_numpy(st.step)}

@@ -70,8 +70,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``attention_ref`` from the bottom right, and they agree only there).
     Returns out (B, H, S, D) in q's dtype, as
     :func:`repro_torch.kernels.ref.attention_ref`.  Raises on any other
-    input and when the launch fails.
+    input and when the launch fails.  The kernel has no backward, so it
+    also raises when grad mode is on and q, k or v requires a gradient,
+    rather than return an output that no gradient reaches (the train step
+    takes the einsum route, :func:`repro_torch.models.common.einsum_route`).
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_cuda has no backward: q, k or v requires a "
+            "gradient; take the einsum route (models.common.einsum_route) "
+            "where a gradient is taken")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")

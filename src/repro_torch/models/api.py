@@ -4,14 +4,15 @@ The counterpart of the JAX package's ``repro.models.api`` for serving:
 
   abstract_params / init_params          (never drift: one tree fn)
   init_cache / make_inputs
+  loss_fn(cfg, params, batch)            causal-LM cross entropy
   forward_logits(cfg, params, batch)     cache-free forward (prefill)
   decode_step(cfg, params, cache, tokens) one-token serve step
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (or another device), and raise without a GPU: nothing falls back to the
-CPU.  ``loss_fn`` waits for the training slice; ``prefill`` (a prompt
-written into the cache in one call) waits because the JAX package's
-version masks the prompt's own keys (``ROADMAP.md`` §3).
+CPU.  ``prefill`` (a prompt written into the cache in one call) waits
+because the JAX package's version masks the prompt's own keys
+(``ROADMAP.md`` §3).
 """
 from __future__ import annotations
 
@@ -78,6 +79,25 @@ def make_inputs(cfg: ModelConfig, kind: str, batch: int, seq: int,
             rng.integers(0, cfg.vocab, (batch, seq)), dtype=torch.int32,
             device=dev)
     return out
+
+
+def loss_fn(cfg: ModelConfig, params, batch, device=None) -> torch.Tensor:
+    """Mean next-token cross entropy over the labels ``>= 0`` (0-d float32
+    tensor).  ``params`` must already be on ``device`` (default
+    ``cuda``).  The gold logit is gathered: the JAX package takes it by a
+    masked reduction, which keeps a sharded vocabulary sharded; nothing
+    is sharded here."""
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    batch = {k: _to(v, dev) for k, v in batch.items()}
+    logits, _ = forward(cfg, params, batch, cache=None)
+    labels = batch["labels"].long()
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                         min=1.0)
 
 
 def forward_logits(cfg: ModelConfig, params, batch, device=None):

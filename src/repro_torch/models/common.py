@@ -32,11 +32,26 @@ def einsum_route():
     route: it computes what the JAX package computes with its Pallas
     kernel switched off.  A reference for the kernel route at full
     width."""
-    token = _FLASH_ROUTE.set(False)
+    with _route(False):
+        yield
+
+
+@contextlib.contextmanager
+def _route(flash: bool):
+    token = _FLASH_ROUTE.set(flash)
     try:
         yield
     finally:
         _FLASH_ROUTE.reset(token)
+
+
+def current_route():
+    """A context manager that restores the attention route in force now,
+    for work that runs later and perhaps on another thread: the recompute
+    of ``torch.utils.checkpoint`` runs in the backward, which the
+    autograd engine runs on a thread of its own for CUDA tensors, where
+    the route would be the default (the flash kernel)."""
+    return _route(_FLASH_ROUTE.get())
 
 
 def cdt(cfg: ModelConfig) -> torch.dtype:

@@ -57,8 +57,9 @@ class ModelConfig:
 
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    # Kept so configs carry across; no effect here: eager PyTorch keeps
-    # no rematerialisation policy (training is a later slice).
+    # As in the JAX package: when a gradient is taken, each layer runs
+    # under torch.utils.checkpoint (models.zoo.forward) and its
+    # activations are recomputed in the backward.
     remat: bool = True
     # Kept so configs carry across; no effect here.  On CUDA, attention
     # takes the hand-written flash kernel whenever the JAX package's shape
@@ -69,8 +70,9 @@ class ModelConfig:
     # Python loop over the stacked (L, ...) leaves.
     scan_layers: bool = True
     banded_attention: bool = False   # O(S-window) sliding-window blocks
-    # Kept so configs carry across; no effect here (a training option of
-    # the FSDP gathers; training is a later slice).
+    # As in the JAX package: the train step casts the float32 leaves to
+    # bf16 once a step (train.step); the gradient lands on the float32
+    # leaves.  No gathers here: nothing is sharded.
     cast_params_bf16: bool = False
     # Kept so configs carry across; no effect here (expert sharding; the
     # moe family is a later slice).

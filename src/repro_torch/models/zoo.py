@@ -7,15 +7,19 @@ audio families raise ``NotImplementedError`` (``ROADMAP.md`` §1, item 7,
 
 Everything is a pure function over nested dict params.  Layer leaves are
 stacked (L, ...) as in the JAX package, so parameters convert one to one;
-the JAX package's ``lax.scan`` over the stack is a Python loop here.
+the JAX package's ``lax.scan`` over the stack is a Python loop here, and
+its ``jax.checkpoint`` of the layer body (``cfg.remat``) is
+``torch.utils.checkpoint`` of each layer when a gradient is taken.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from .common import attn_block, cdt, rmsnorm, swiglu
+from .common import attn_block, cdt, current_route, rmsnorm, swiglu
 from .config import ModelConfig
 from .params import Leaf
 
@@ -79,7 +83,9 @@ def cache_tree(cfg: ModelConfig, leaf, batch_size: int, cache_len: int):
 
 
 def _embed(cfg: ModelConfig, params, tokens):
-    # gather, then cast: the same values as casting the table first
+    # gather, then cast: the same values as casting the table first; the
+    # gradient's duplicate rows add up in the table's dtype (the JAX
+    # package adds them in the compute dtype)
     return params["embed"][tokens.long()].to(cdt(cfg))
 
 
@@ -95,10 +101,23 @@ def _dense_layer(cfg, pl_, x, pos, cache, window=0):
     return x, cache
 
 
-def _layer(tree, l: int):
-    """Layer ``l`` of a stacked (L, ...) tree, as views."""
-    return {k: _layer(v, l) if isinstance(v, dict) else v[l]
-            for k, v in tree.items()}
+def _layers(tree, n: int):
+    """The ``n`` layers of a stacked (L, ...) tree, as views.  Each leaf
+    is unbound once: under autograd the backward of ``torch.unbind``
+    stacks the layers' gradients once, where indexing ``v[l]`` per layer
+    would build a zero tensor the size of the whole leaf for each layer."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _layers(v, n) if isinstance(v, dict) else torch.unbind(v)
+        for l in range(n):
+            out[l][k] = parts[l]
+    return out
+
+
+def _recompute_as_now():
+    """``checkpoint``'s contexts: the forward runs as it is, the
+    recompute in the route of the forward."""
+    return contextlib.nullcontext(), current_route()
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
@@ -118,9 +137,16 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         idx = cache["idx"]
         pos = (idx + ar).expand(b, s)
 
+    # remat as the JAX package's jax.checkpoint of the layer body: each
+    # layer keeps only its input and recomputes the rest in the backward
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     ks, vs = [], []
-    for l in range(cfg.n_layers):
-        pl_ = _layer(params["layers"], l)
+    for l, pl_ in enumerate(_layers(params["layers"], cfg.n_layers)):
+        if remat:
+            x = checkpoint(lambda xx, pp=pl_: _dense_layer(
+                cfg, pp, xx, pos, None)[0], x, use_reentrant=False,
+                context_fn=_recompute_as_now)
+            continue
         c_l = None if cache is None else (cache["k"][l], cache["v"][l], idx)
         x, c_out = _dense_layer(cfg, pl_, x, pos, c_l)
         if cache is not None:

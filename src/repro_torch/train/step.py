@@ -1,14 +1,62 @@
-"""Serve and prefill steps over the model API.
+"""Train, serve and prefill steps over the model API.
 
-The counterparts of the JAX package's ``repro.train.step``
-``make_serve_step`` and ``make_prefill_step``; ``make_train_step`` waits
-for the training slice.  PyTorch runs eagerly, so a step is a plain
-function (no ``jit``).
+The counterparts of the JAX package's ``repro.train.step``.  PyTorch runs
+eagerly, so a step is a plain function (no ``jit``).
+
+The train step takes its gradient through the einsum/blocked attention
+route (:func:`repro_torch.models.common.einsum_route`), as the JAX
+package trains through XLA attention: the flash kernel (K2) has no
+backward, and its wrapper refuses inputs that need a gradient.
 """
 from __future__ import annotations
 
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.device import resolve_device
 from repro_torch.models import api
+from repro_torch.models.common import einsum_route
 from repro_torch.models.config import ModelConfig
+from repro_torch.train.optim import (OptConfig, OptState, apply_updates,
+                                     tree_items, tree_map)
+
+
+def value_and_grad(cfg: ModelConfig, params, batch, device=None
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """(loss, gradient tree of ``params``), as ``jax.value_and_grad`` of
+    the JAX package's train-step loss.  With ``cfg.cast_params_bf16`` the
+    float32 leaves are cast to bf16 once and the gradient lands on the
+    float32 leaves."""
+    with torch.enable_grad(), einsum_route():
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        used = leaves
+        if cfg.cast_params_bf16:
+            # one cast per step (in the JAX package, the FSDP gathers and
+            # gradient reduce-scatters at this boundary move bf16)
+            used = tree_map(lambda p: p.to(torch.bfloat16)
+                            if p.dtype == torch.float32 else p, leaves)
+        loss = api.loss_fn(cfg, used, batch, device=device)
+        grads = iter(torch.autograd.grad(
+            loss, [p for _, p in tree_items(leaves)]))
+    return loss.detach(), tree_map(lambda _: next(grads), leaves)
+
+
+def make_train_step(cfg: ModelConfig, opt: OptConfig, device=None):
+    """(params, opt_state, batch) -> (params, opt_state, metrics), with
+    ``metrics`` holding 0-d tensors ``loss``, ``grad_norm`` and ``step``.
+    New tensors come out; the inputs stay as they were.  Runs on
+    ``device`` (default ``cuda``, which raises without a GPU)."""
+    dev = resolve_device(device)
+
+    def train_step(params, opt_state: OptState, batch: Dict[str, Any]):
+        loss, grads = value_and_grad(cfg, params, batch, device=dev)
+        params, opt_state, gnorm = apply_updates(opt, params, grads,
+                                                 opt_state)
+        metrics = {"loss": loss, "grad_norm": gnorm, "step": opt_state.step}
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_serve_step(cfg: ModelConfig, device=None):

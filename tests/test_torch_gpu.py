@@ -231,3 +231,64 @@ def test_lm_forward_on_the_card_equals_the_cpu_run(cuda):
     got, _ = api.forward_logits(cfg, on_card, {"tokens": tokens})
     assert flash_attention.LAUNCHES.n == cfg.n_layers
     assert float((got.cpu() - want).abs().max()) < 1e-4
+
+
+def test_flash_attention_refuses_inputs_that_need_a_gradient(cuda):
+    x = torch.zeros(1, 2, 128, 64, device=cuda)
+    before = flash_attention.LAUNCHES.n
+    for args in ((x.clone().requires_grad_(), x, x),
+                 (x, x, x.clone().requires_grad_())):
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention.flash_attention_cuda(*args)
+        with pytest.raises(RuntimeError, match="no backward"):
+            ops.attention(*args)
+    assert flash_attention.LAUNCHES.n == before
+    with torch.no_grad():      # nothing needs a gradient: it launches
+        flash_attention.flash_attention_cuda(x.clone().requires_grad_(), x,
+                                             x)
+    assert flash_attention.LAUNCHES.n == before + 1
+
+
+def test_train_step_on_the_card_equals_the_cpu_run(cuda):
+    """Reduced tinyllama, float32 compute, S = 128 (the flash route's
+    shape, which the train step leaves for the einsum route): three train
+    steps on the card against the CPU's: loss and grad norm within 1e-5
+    relative (float32 in another summation order); parameters as
+    ``tests/test_torch_train.py`` holds them against JAX, every element
+    within 6 x lr and all but 0.1% within 1e-6 (AdamW's first updates are
+    about lr x sign(g), which a gradient at rounding level can flip)."""
+    from repro_torch.train import optim, step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.reduced("tinyllama-1.1b"),
+                              compute_dtype="float32")
+    opt = optim.OptConfig(lr=1e-3, warmup=2, total_steps=10)
+    params = api.init_params(cfg, 0, device="cpu")
+    on_card = convert.params_from_numpy(convert.params_to_numpy(params),
+                                        cuda, cfg)
+    rng = np.random.default_rng(2)
+    batch = {k: rng.integers(0, cfg.vocab, (2, 128)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    runs = {}
+    for dev, p in (("cpu", params), (cuda, on_card)):
+        fn = step.make_train_step(cfg, opt, device=dev)
+        st = optim.init_opt(opt, p)
+        flash_attention.LAUNCHES.reset()
+        ms = []
+        for _ in range(3):
+            p, st, m = fn(p, st, batch)
+            ms.append({k: float(v) for k, v in m.items()})
+        assert flash_attention.LAUNCHES.n == 0
+        runs[str(dev)] = (p, ms)
+    (p_cpu, m_cpu), (p_card, m_card) = runs["cpu"], runs[str(cuda)]
+    for a, b in zip(m_cpu, m_card):
+        assert a["step"] == b["step"]
+        for k in ("loss", "grad_norm"):
+            assert abs(a[k] - b[k]) <= 1e-5 * abs(a[k]), (k, a, b)
+    off = total = 0
+    for (path, a), (_, b) in zip(optim.tree_items(p_cpu),
+                                 optim.tree_items(p_card)):
+        d = (a - b.cpu()).abs()
+        assert float(d.max()) <= 6 * opt.lr, path
+        off += int((d > 1e-6).sum())
+        total += d.numel()
+    assert off <= 1e-3 * total, (off, total)

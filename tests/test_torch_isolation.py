@@ -19,8 +19,13 @@ from repro_torch.configs import registry
 from repro_torch.core import sim as tsim
 from repro_torch.core.config import SimConfig
 from repro_torch.launch import serve, simulate
+from repro_torch.launch import train as train_cli
 from repro_torch.models import api
 from repro_torch.serve.server import Server
+from repro_torch.train.data import DataConfig
+from repro_torch.train.loop import LoopConfig, Trainer
+from repro_torch.train.optim import OptConfig
+from repro_torch.train.step import make_train_step
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SRC = os.path.join(ROOT, "src")
@@ -45,7 +50,10 @@ def test_port_imports_no_jax_and_no_repro():
         "repro_torch.serve.server, repro_torch.launch.serve, "
         "repro_torch.train.step, repro_torch.core.sweep, "
         "repro_torch.core.engine, repro_torch.core.zoo, "
-        "repro_torch.core.ref_serial, repro_torch.core.trace\n"
+        "repro_torch.core.ref_serial, repro_torch.core.trace, "
+        "repro_torch.train.optim, repro_torch.train.data, "
+        "repro_torch.train.checkpoint, repro_torch.train.loop, "
+        "repro_torch.launch.train, repro_torch.models.costs\n"
         "from repro_torch.configs import registry\n"
         "[registry.get(a) for a in registry.ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -118,6 +126,31 @@ def test_lm_entry_points_need_a_gpu_unless_asked_for_the_cpu():
                                    device="cpu")
     assert logits.device.type == "cpu" and logits.shape == (1, 4, cfg.vocab)
     assert Server(cfg, params, device="cpu").cache["k"].device.type == "cpu"
+
+
+def test_train_entry_points_need_a_gpu_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    cfg = registry.reduced("tinyllama-1.1b")
+    opt = OptConfig(lr=1e-3, warmup=1, total_steps=2)
+    data = DataConfig(batch=1, seq=8)
+    loop = LoopConfig(steps=1, ckpt_dir=str(tmp_path), resume=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(cfg, opt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, opt, data, loop)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--arch", "tinyllama-1.1b", "--reduced", "--steps",
+                        "1", "--ckpt-dir", str(tmp_path)])
+    params = api.init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.loss_fn(cfg, params, {"tokens": np.zeros((1, 4), np.int32),
+                                  "labels": np.zeros((1, 4), np.int32)})
+    assert not list(tmp_path.iterdir())      # nothing was written
+    # asked for the CPU, the trainer runs there
+    tr = Trainer(cfg, opt, data, loop, device="cpu")
+    assert tr.run()["steps"] == 1
+    assert tr.params["embed"].device.type == "cpu"
 
 
 def test_launcher_on_the_cpu(tmp_path, capsys):
