@@ -53,6 +53,22 @@ caught:
    launches and no standalone arbitration; prints ms per scenario-cycle
    beside the solo runs' and paper-208's, and the peak device memory
    beside the planner's ``plan_state_bytes``;
+6d. sharded — the multi-device simulator (``core/sharded.py``) at
+   paper-208, its ranks started as subprocesses by
+   ``repro_torch.dist.spawn`` (each with a timeout; a rank's failure
+   fails the phase): (a) ``ShardedSim`` on one NCCL rank, grid (1, 1,
+   1); (b) four gloo ranks on ``cuda:0``, a 2x2 split (10,816-router
+   tiles); both runs' statistics on every rank must equal
+   ``BENCH_paper_scale.json`` ``raw.stats``, with one fused Phase-2
+   launch a cycle on every rank and no standalone arbitration; (c)
+   ``run_composed`` of sweep-208's four scenarios over a (2, 2, 1) grid
+   of four gloo ranks on ``cuda:0``: every rank's results equal 6b's;
+   (d) on every rank of (b) (rank 3's tile is the farthest from the
+   mesh's origin), the fused kernel against its plain version (on CPU
+   copies) on that tile's Phase-2 inputs after 32 cycles and Phases 1a
+   and 1b, bit-exact.  Prints ms a cycle per rank: ranks time-sharing one card
+   and one host, not a scaling result.  NCCL with more than one rank
+   needs a card a rank, which one card cannot show;
 6c. plan     — run beside zoo-cli (10, below), whose subprocesses start
    just before it and are waited for just after: ``BENCH_plan.json``'s
    smoke set (4x4 and 8x8, ``equake``,
@@ -96,7 +112,8 @@ caught:
 
 The two lines before the last are the card (as ``nvidia-smi`` gives it)
 and one JSON object with the three kernels' numbers (K1 alone, the fused
-Phase-2 kernel, K2); the last line is
+Phase-2 kernel, K2; the fused kernel's launches count every rank of
+the sharded phase); the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU it exits non-zero and
 prints no result.
 """
@@ -232,6 +249,15 @@ PLAN_MAX_CYCLES, PLAN_CHUNK = 20_000, 8
 PLAN_NET = {"deflection_rate": 6, "hops_per_flit": 4,
             "deflections_per_flit": 4, "drops_recovered": None,
             "stray_responses": None}
+#: the sharded phase's grids: one NCCL rank; a 2x2 spatial split and a
+#: (2, 2, 1) composed grid, each on four gloo ranks sharing cuda:0
+SHARDED_SOLO, SHARDED_SPLIT, SHARDED_COMPOSED = (1, 1, 1), (1, 2, 2), \
+    (2, 2, 1)
+#: the rank of SHARDED_SPLIT whose tile (d) reports: (0, 1, 1), the tile
+#: farthest from the mesh's origin
+SHARDED_TILE_RANK = 3
+#: seconds each group of ranks may take
+SHARDED_TIMEOUT = 600
 ZOO_FAMILY = "patterns-tiny"
 SERIAL_FLAGS = ["--rows", "4", "--cols", "4", "--app", "matmul", "--refs",
                 "12"]
@@ -249,6 +275,20 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def paper_config(cycles: int = PAPER_CYCLES):
+    from repro_torch.core.config import SimConfig
+    return SimConfig(rows=208, cols=208, max_cycles=cycles,
+                     centralized_directory=False, dir_layout="home",
+                     state_dtype_policy="packed")
+
+
+def sweep_spec():
+    """sweep-208's scenarios (6b) over paper-208's config."""
+    from repro_torch.core.sweep import ScenarioSpec, SweepSpec
+    return SweepSpec(paper_config(), tuple(
+        ScenarioSpec("random", seed, 8, **kw) for seed, kw in SWEEP_SCENARIOS))
 
 
 def event_ms(fn, iters: int) -> float:
@@ -452,9 +492,7 @@ def phase_kernel_phase2(dev):
 
     wedge = SimConfig(rows=16, cols=16, centralized_directory=False,
                       max_cycles=200_000)
-    paper = SimConfig(rows=208, cols=208, max_cycles=PAPER_CYCLES,
-                      centralized_directory=False, dir_layout="home",
-                      state_dtype_policy="packed")
+    paper = paper_config()
     states = [("wedge", wedge, c, a) for c, a in midrun_phase2_inputs(
         wedge, app_trace_loop(wedge, "matmul", 20, 0), WEDGE_SNAPSHOTS, dev)]
     states += [("paper-208", paper, c, a) for c, a in midrun_phase2_inputs(
@@ -469,9 +507,7 @@ def phase_kernel_phase2(dev):
 
     # timed at 43,264 routers on the paper run's own inputs (the timed
     # config: 64 refs/core, mid-run)
-    cfg_t = SimConfig(rows=208, cols=208, max_cycles=TIMED_CYCLES,
-                      centralized_directory=False, dir_layout="home",
-                      state_dtype_policy="packed")
+    cfg_t = paper_config(TIMED_CYCLES)
     (_, args), = midrun_phase2_inputs(
         cfg_t, random_trace(cfg_t, refs_per_core=64, seed=0), (16,), dev)
     vals = [args[k] for k in P2_ARGS]
@@ -565,16 +601,13 @@ def phase_paper(dev):
     standalone arbitration in that run, and the timed run's ms a
     cycle."""
     import torch
-    from repro_torch.core.config import SimConfig
     from repro_torch.core.sim import VectorSim, run
     from repro_torch.core.workloads import random_trace
     from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
 
     with open(os.path.join(ROOT, "BENCH_paper_scale.json")) as f:
         want = json.load(f)["raw"]["stats"]
-    cfg = SimConfig(rows=208, cols=208, max_cycles=PAPER_CYCLES,
-                    centralized_directory=False, dir_layout="home",
-                    state_dtype_policy="packed")
+    cfg = paper_config()
     tr = random_trace(cfg, refs_per_core=8, seed=0)
     LAUNCHES.reset()
     ARB_LAUNCHES.reset()
@@ -602,9 +635,7 @@ def phase_paper(dev):
           f"{arb_launches}; {wall:.3f} s including set-up")
 
     # a longer run at the same mesh, timed after a short warm-up run
-    cfg_t = SimConfig(rows=208, cols=208, max_cycles=TIMED_CYCLES,
-                      centralized_directory=False, dir_layout="home",
-                      state_dtype_policy="packed")
+    cfg_t = paper_config(TIMED_CYCLES)
     tr_t = random_trace(cfg_t, refs_per_core=64, seed=0)
     run(cfg_t, tr_t, max_cycles=8, chunk=8, device=dev)
     torch.cuda.synchronize()
@@ -653,23 +684,18 @@ def _diff(want, got) -> dict:
             if want.get(k) != got.get(k)}
 
 
-def phase_sweep(dev, paper_ms: float) -> int:
+def phase_sweep(dev, paper_ms: float):
     """Four scenarios of paper-208 in one ``run_sweep``; returns the fused
-    Phase-2 launches of the sweep."""
+    Phase-2 launches of the sweep and its results."""
     import torch
-    from repro_torch.core.config import SimConfig
     from repro_torch.core.engine import plan_state_bytes
-    from repro_torch.core.sweep import (ScenarioSpec, SweepSpec,
-                                        run_sequential, run_sweep)
+    from repro_torch.core.sweep import run_sequential, run_sweep
     from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
 
     with open(os.path.join(ROOT, "BENCH_paper_scale.json")) as f:
         want0 = json.load(f)["raw"]["stats"]
-    cfg = SimConfig(rows=208, cols=208, max_cycles=PAPER_CYCLES,
-                    centralized_directory=False, dir_layout="home",
-                    state_dtype_policy="packed")
-    spec = SweepSpec(cfg, tuple(ScenarioSpec("random", seed, 8, **kw)
-                                for seed, kw in SWEEP_SCENARIOS))
+    spec = sweep_spec()
+    cfg = spec.cfg
     b = spec.size
     spec.traces()                      # host set-up, outside the timing
     torch.cuda.synchronize()
@@ -719,7 +745,187 @@ def phase_sweep(dev, paper_ms: float) -> int:
           f"{peak} B over the {base_mem} B held before, "
           f"plan_state_bytes {plan_bytes} B (peak / plan "
           f"{peak / plan_bytes:.3f}); card: {card_line()}")
-    return launches
+    return launches, got
+
+
+def tile_phase2_check(sim) -> dict:
+    """(d): each local scenario's Phase-2 inputs on this rank's tile
+    (widened, then Phases 1a and 1b of the next cycle, as the tile step
+    hands them to ``noc.phase2``), through the fused kernel and through
+    its plain version on CPU copies; every output must agree exactly."""
+    import torch
+    from repro_torch.core.cache import phase1a, phase1b
+    from repro_torch.core.state import widen_state
+    from repro_torch.kernels.ref import phase2_router_ref
+    from repro_torch.kernels.router_phase import phase2_router_cuda
+    ctx, cfg = sim.ctx, sim.cfg
+    flits, max_err = 0, 0
+    with torch.inference_mode():
+        for st in sim.states:
+            s = phase1b(phase1a(widen_state(st), cfg, ctx), cfg, ctx)
+            args = dict(inp=s.inp, rob=s.rob, pc=s.pc, q_desc=s.q_desc,
+                        q_head=s.q_head, q_size=s.q_size, q_fid=s.q_fid,
+                        node_id=ctx.node_id, node_r=ctx.node_r,
+                        node_c=ctx.node_c, valid_port=ctx.valid_port,
+                        knob_ej_age=s.knob_ej_age, stats=s.stats)
+            got = phase2_router_cuda(*(args[k] for k in P2_ARGS),
+                                     cols=cfg.cols)
+            want = phase2_router_ref(*(args[k].cpu() for k in P2_ARGS),
+                                     cols=cfg.cols)
+            torch.cuda.synchronize()
+            for name, g, w in zip(want._fields, got, want):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise AssertionError(f"{name}: {g.dtype} {g.shape} vs "
+                                         f"{w.dtype} {w.shape}")
+                err = int((g.cpu().long() - w.long()).abs().max()) \
+                    if w.numel() else 0
+                max_err = max(max_err, err)
+            flits += int((args["inp"][..., 0] > 0).sum())
+    return {"max_abs_err": max_err, "flits": flits,
+            "first_id": int(ctx.node_id[0]), "routers": int(ctx.node.numel())}
+
+
+def sharded_rank(grid, composed: bool, check_tile: bool) -> dict:
+    """One rank of the sharded phase, in a subprocess: paper-208 through
+    ``ShardedSim`` (``composed``: sweep-208 through ``run_composed``),
+    this rank's fused and standalone launches, its wall ms a cycle, and
+    on request (d) on its tile."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.sharded import ProcessGrid, ShardedSim, \
+        run_composed
+    from repro_torch.core.workloads import random_trace
+    from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
+    out = {"backend": dist.get_backend(),
+           "device": torch.cuda.current_device()}
+    if composed:
+        spec = sweep_spec()
+        spec.traces()                           # host set-up, untimed
+        run_composed(spec, grid, 2, 2)          # warm-up
+        torch.cuda.synchronize()
+        LAUNCHES.reset()
+        ARB_LAUNCHES.reset()
+        t0 = time.perf_counter()
+        out["res"] = run_composed(spec, grid, PAPER_CYCLES, PAPER_CYCLES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["what"] = "set-up included, after a warm-up run"
+        out.update(launches=LAUNCHES.n, arb=ARB_LAUNCHES.n)
+    else:
+        cfg = paper_config()
+        tr = random_trace(cfg, refs_per_core=8, seed=0)
+        pg = ProcessGrid(*grid)
+        try:
+            # a short warm-up run first: the timed one then starts warm
+            ShardedSim(cfg, tr, pg).run(2, chunk=2)
+            sim = ShardedSim(cfg, tr, pg)
+            torch.cuda.synchronize()
+            LAUNCHES.reset()
+            ARB_LAUNCHES.reset()
+            t0 = time.perf_counter()
+            out["res"] = sim.run(PAPER_CYCLES, chunk=PAPER_CYCLES)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out.update(launches=LAUNCHES.n, arb=ARB_LAUNCHES.n,
+                       what="run only, after a warm-up run",
+                       routers=int(sim.ctx.node.numel()))
+            if check_tile:
+                out["tile"] = tile_phase2_check(sim)
+        finally:
+            pg.close()
+    out["ms"] = wall / PAPER_CYCLES * 1e3
+    return out
+
+
+def gloo_cuda_collectives() -> list:
+    """On a gloo rank whose device is a CUDA card: the collectives that
+    take CUDA tensors and give the right sums.  The sharded backend's
+    termination and statistics all-reduces need ``all_reduce``; its
+    halo slabs go point to point through host tensors, since gloo's
+    send/recv of a CUDA tensor aborts the rank
+    (``tests/test_torch_gpu.py``)."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", torch.cuda.current_device())
+    r, n = dist.get_rank(), dist.get_world_size()
+    t = torch.full((4,), r + 1, device=dev, dtype=torch.int32)
+    dist.all_reduce(t)
+    ok = ["all_reduce"] if t.tolist() == [n * (n + 1) // 2] * 4 else []
+    t = torch.full((4,), r + 5, device=dev, dtype=torch.int32)
+    dist.broadcast(t, 0)
+    ok += ["broadcast"] if t.tolist() == [5] * 4 else []
+    parts = [torch.empty(4, device=dev, dtype=torch.int32) for _ in range(n)]
+    dist.all_gather(parts, torch.full((4,), r, device=dev,
+                                      dtype=torch.int32))
+    ok += ["all_gather"] if [p.tolist() for p in parts] == [
+        [i] * 4 for i in range(n)] else []
+    dist.barrier()
+    return ok
+
+
+def phase_sharded(sweep_got) -> int:
+    """(a)-(d) of the sharded phase; returns the fused Phase-2 launches
+    of its main-path runs, over every rank."""
+    from repro_torch.dist import spawn
+
+    ops = spawn(gloo_cuda_collectives, 2, device="cuda:0", backend="gloo",
+                timeout_s=SHARDED_TIMEOUT)
+    if any("all_reduce" not in o for o in ops):
+        fail(f"sharded: gloo's all_reduce of CUDA tensors is wrong: {ops}")
+    print(f"sharded: gloo collectives of CUDA tensors with the right result "
+          f"on both ranks: {ops[0]}")
+
+    with open(os.path.join(ROOT, "BENCH_paper_scale.json")) as f:
+        want = json.load(f)["raw"]["stats"]
+    runs = (
+        ("(a) 1 NCCL rank", SHARDED_SOLO, "nccl", False, want, 1),
+        ("(b) 2x2 on 4 gloo ranks", SHARDED_SPLIT, "gloo", False, want, 1),
+        ("(c) composed (2, 2, 1) on 4 gloo ranks", SHARDED_COMPOSED, "gloo",
+         True, sweep_got, 2))
+    total = 0
+    for name, grid, backend, composed, expect, local in runs:
+        n = grid[0] * grid[1] * grid[2]
+        t0 = time.perf_counter()
+        outs = spawn(sharded_rank, n, (grid, composed,
+                                       grid == SHARDED_SPLIT),
+                     device="cuda:0", backend=backend,
+                     timeout_s=SHARDED_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for r, o in enumerate(outs):
+            if o["backend"] != backend or o["device"] != 0:
+                fail(f"sharded {name}: rank {r} ran {o['backend']} on "
+                     f"cuda:{o['device']}")
+            if o["res"] != expect:
+                diff = (_diff(expect, o["res"]) if isinstance(expect, dict)
+                        else [_diff(w, g) for w, g in zip(expect, o["res"])])
+                fail(f"sharded {name}: rank {r}'s statistics differ: {diff}")
+            if o["launches"] != local * PAPER_CYCLES or o["arb"]:
+                fail(f"sharded {name}: rank {r} launched the fused kernel "
+                     f"{o['launches']} times and the standalone arbitration "
+                     f"{o['arb']}, expected {local * PAPER_CYCLES} and 0")
+        total += sum(o["launches"] for o in outs)
+        what = ("BENCH_paper_scale.json raw.stats" if isinstance(expect, dict)
+                else "sweep-208's four results")
+        print(f"sharded {name}: every rank == {what}; fused Phase-2 "
+              f"launches {[o['launches'] for o in outs]}, standalone "
+              f"arbitration 0; {wall:.1f} s with the ranks' start")
+        print(f"sharded {name}: ms a cycle by rank ({outs[0]['what']}; ranks "
+              f"time-sharing one card and one host, not a scaling result): "
+              f"{[round(o['ms'], 3) for o in outs]}; card: {card_line()}")
+        if grid != SHARDED_SPLIT:
+            continue
+        for r, o in enumerate(outs):
+            if o["tile"]["max_abs_err"]:
+                fail(f"sharded (d): the fused kernel differs from "
+                     f"phase2_router_ref by up to {o['tile']['max_abs_err']}"
+                     f" on rank {r}'s tile")
+        tile = outs[SHARDED_TILE_RANK]["tile"]
+        print(f"sharded (d): every rank's tile after {PAPER_CYCLES} cycles "
+              f"+ phases 1a, 1b: fused kernel bit-exact against "
+              f"phase2_router_ref; rank {SHARDED_TILE_RANK}'s tile has "
+              f"{tile['routers']} routers from node {tile['first_id']} and "
+              f"{tile['flits']} flits in flight")
+    return total
 
 
 def phase_plan(dev) -> int:
@@ -1433,7 +1639,9 @@ def main() -> None:
     timed("wedge", phase_wedge, dev)
     paper_launches, rec_k1["launches"], paper_ms = timed(
         "paper", phase_paper, dev)
-    sweep_launches = timed("sweep-208", phase_sweep, dev, paper_ms)
+    sweep_launches, sweep_got = timed("sweep-208", phase_sweep, dev,
+                                      paper_ms)
+    sharded_launches = timed("sharded", phase_sharded, sweep_got)
     # zoo-cli's subprocesses run beside the plan phase (neither is timed
     # for a claim); both end before the timed LM phases
     t_zoo = time.perf_counter()
@@ -1443,11 +1651,13 @@ def main() -> None:
         timed("zoo-cli", phase_zoo_cli, zoo, t_zoo)
     finally:
         stop(zoo)
-    # the fused kernel's main paths: paper-208's run and the sweep's
-    rec_p2["launches"] = paper_launches + sweep_launches
+    # the fused kernel's main paths: paper-208's run, the sweep's and the
+    # sharded runs' (every rank's)
+    rec_p2["launches"] = paper_launches + sweep_launches + sharded_launches
     print(f"launches: phase2_router {paper_launches} (paper-208) + "
-          f"{sweep_launches} (sweep-208) = {rec_p2['launches']}; the plan's "
-          f"run {plan_launches}; router_arbitrate {rec_k1['launches']}")
+          f"{sweep_launches} (sweep-208) + {sharded_launches} (sharded, all "
+          f"ranks) = {rec_p2['launches']}; the plan's run {plan_launches}; "
+          f"router_arbitrate {rec_k1['launches']}")
     cfg, params, rec_k2["launches"] = timed("lm-prefill", phase_lm_prefill,
                                             dev)
     timed("lm-decode", phase_lm_decode, dev, cfg, params)

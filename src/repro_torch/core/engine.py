@@ -30,15 +30,21 @@ costs, notes, memory budget, :meth:`ExecutionPlan.describe`) gives the
 same plans for the same device count, and the same ``REPRO_COST_MODEL``
 calibration file serves both packages.  What differs:
 
-* :func:`compile_plan` defaults ``ndev`` to 1, the one device a run uses
-  in the port today.  An explicit ``ndev`` plans exactly as the JAX
-  package does, ``sharded``/``composed`` choices and fall-back notes
-  included.
-* :func:`execute_plan` runs on one device (``device``, default
-  ``cuda``); a bucket planned for more devices than that runs on the
-  sweep backend, as the JAX package's does when its process has too few
-  devices.  The spatial and composed runners belong to ROADMAP item 5
-  (multi-GPU) and raise ``NotImplementedError`` until then.
+* A device is a rank: :func:`compile_plan` defaults ``ndev`` to
+  :func:`run_devices`, the size of the default ``torch.distributed``
+  process group (1 without one; ``RUN_DEVICES`` reads it too).  An
+  explicit ``ndev`` plans exactly as the JAX package does,
+  ``sharded``/``composed`` choices and fall-back notes included.
+* :func:`execute_plan` runs each bucket on the ranks of the group (every
+  rank must call it; :mod:`repro_torch.core.sharded` for the spatial and
+  composed backends, the sweep's scenario split for ``sweep``), each
+  rank on its own ``device``; a bucket planned for more ranks than the
+  group has runs on the sweep backend, as the JAX package's does when
+  its process has too few devices.
+* The cost constants are the JAX package's CPU-calibrated defaults.
+  They were never fitted to a GPU, so the backend a plan picks on the
+  card means nothing until a calibration file from a GPU run exists
+  (``REPRO_COST_MODEL``).
 * The JAX package's ``expose_host_devices`` (which widens XLA's host
   device list before JAX is imported) has no meaning in torch and is
   left out.
@@ -60,6 +66,7 @@ import dataclasses
 import json
 import os
 import re
+import sys
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from .config import CacheConfig, SimConfig
@@ -71,7 +78,7 @@ __all__ = [
     "compile_plan", "execute_plan", "plan_and_run", "load_manifest",
     "CostConstants", "cost_constants",
     "set_cost_constants", "load_cost_constants", "save_cost_constants",
-    "parse_mem_budget", "plan_state_bytes",
+    "parse_mem_budget", "plan_state_bytes", "run_devices",
 ]
 
 
@@ -85,15 +92,31 @@ KNOB_FIELDS = ("migration_enabled", "migrate_threshold",
 _KNOB_NORM = dict(migration_enabled=True, migrate_threshold=3,
                   centralized_directory=False, eject_age_threshold=0)
 
-#: devices a run uses: one.  Sharding over several GPUs (the sharded and
-#: composed backends, and the sweep's scenario axis) is ROADMAP item 5.
-RUN_DEVICES = 1
+
+def run_devices() -> int:
+    """Devices a run uses: the ranks of the default ``torch.distributed``
+    process group, or 1 without one.  Imports no torch: a process that
+    has not imported ``torch.distributed`` has no group."""
+    d = sys.modules.get("torch.distributed")
+    if d is None or not d.is_available() or not d.is_initialized():
+        return 1
+    return d.get_world_size()
+
+
+def __getattr__(name: str):
+    # RUN_DEVICES follows the process group (run_devices())
+    if name == "RUN_DEVICES":
+        return run_devices()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 @dataclasses.dataclass(frozen=True)
 class CostConstants:
     """Cost-model constants: driver work per simulated cycle, node-units.
 
-    The defaults are the JAX package's CPU-calibrated guesses; a JSON file
+    The defaults are the JAX package's CPU-calibrated guesses, never
+    fitted to a GPU: on the card the backend they pick means nothing
+    until a calibration exists.  A JSON file
     of calibrated values (the JAX package's calibration emits one) is
     loaded by :func:`load_cost_constants`, or automatically from the path
     in ``$REPRO_COST_MODEL`` at import.
@@ -585,8 +608,7 @@ def compile_plan(scenarios: Sequence[Scenario], ndev: Optional[int] = None,
             and policy knobs.  Scenarios differing only in workload or
             knobs share a bucket (ONE batched run).
         ndev: device count to cost the plan for; defaults to
-            :data:`RUN_DEVICES`, the one device :func:`execute_plan`
-            runs on.
+            :func:`run_devices`, the ranks :func:`execute_plan` runs on.
         force_backend: pin every bucket to ``"sweep"`` / ``"sharded"`` /
             ``"composed"``; impossible pins degrade per bucket with a
             note (see :func:`choose_backend`).
@@ -603,7 +625,7 @@ def compile_plan(scenarios: Sequence[Scenario], ndev: Optional[int] = None,
     for sc in scenarios:
         sc.validate()
     if ndev is None:
-        ndev = RUN_DEVICES
+        ndev = run_devices()
     if mem_budget is None:
         mem_budget = parse_mem_budget(os.environ.get("REPRO_MEM_BUDGET"))
 
@@ -655,16 +677,20 @@ def _run_bucket_sweep(b: Bucket, max_cycles: Optional[int], chunk: int,
 
 def _run_bucket_composed(b: Bucket, max_cycles: Optional[int],
                          sharded_chunk: int, device) -> List[Dict[str, int]]:
-    raise NotImplementedError(
-        "the composed backend (scenarios x rows x cols over several GPUs) "
-        "is ROADMAP item 5, multi-GPU")
+    from .sharded import run_composed
+    return run_composed(_bucket_sweep_spec(b), b.grid, max_cycles=max_cycles,
+                        chunk=sharded_chunk, device=device)
 
 
 def _run_bucket_sharded(b: Bucket, max_cycles: Optional[int],
                         sharded_chunk: int, device) -> List[Dict[str, int]]:
-    raise NotImplementedError(
-        "the sharded backend (one scenario's mesh over several GPUs) is "
-        "ROADMAP item 5, multi-GPU")
+    from .sharded import run_sharded
+    from .workloads import resolve_trace
+    (sc,) = b.scenarios
+    cfg = dataclasses.replace(sc.cfg, dir_layout="home")
+    tr = resolve_trace(cfg, sc.app, sc.refs_per_core, sc.seed)
+    return [run_sharded(cfg, tr, (1,) + tuple(b.tiles), max_cycles,
+                        sharded_chunk, device=device)]
 
 
 def execute_plan(plan: ExecutionPlan, max_cycles: Optional[int] = None,
@@ -673,23 +699,26 @@ def execute_plan(plan: ExecutionPlan, max_cycles: Optional[int] = None,
     """Run every bucket of ``plan`` (one batched run each).
 
     Args:
-        plan: the compiled plan.  A spatial/composed bucket planned for
-            more devices than a run has (:data:`RUN_DEVICES`) runs on
-            the sweep backend instead.
+        plan: the compiled plan.  A spatial/composed bucket runs on
+            the first ranks of the process group; one planned for more
+            ranks than the group has (:func:`run_devices`) runs on the
+            sweep backend instead.  Every rank of the group must call
+            it, and every rank gets every result.
         max_cycles: per-scenario cycle cap (default: each scenario's
             ``cfg.max_cycles``).
         chunk: sweep-backend cycles per termination check.
         sharded_chunk: sharded/composed-backend cycles per termination
             check.
-        device: ``None`` (the GPU), ``"cuda"``, ``"cuda:<i>"`` or
-            ``"cpu"``.  Without a GPU only ``"cpu"`` runs.
+        device: this rank's device: ``None`` (the current GPU),
+            ``"cuda"``, ``"cuda:<i>"`` or ``"cpu"``.  Without a GPU only
+            ``"cpu"`` runs.
 
     Returns: one statistics dict per scenario, in the original scenario
     order — bit-identical to solo :func:`repro_torch.core.sim.run` calls."""
     out: List[Optional[Dict[str, int]]] = [None] * len(plan.scenarios)
     for b in plan.buckets:
         if b.backend in ("sharded", "composed"):
-            if RUN_DEVICES < b.devices_needed:
+            if run_devices() < b.devices_needed:
                 res = _run_bucket_sweep(b, max_cycles, chunk, device)
             elif b.backend == "sharded":
                 res = _run_bucket_sharded(b, max_cycles, sharded_chunk,

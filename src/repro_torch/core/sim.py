@@ -43,7 +43,8 @@ from .state import (F_DST, F_VALID, I32, P_VALID, R_NFL, STAT_NAMES,
                     init_state, leaf_dtypes, make_geometry, make_node_ctx,
                     narrow_state, stats_totals, widen_state)
 
-__all__ = ["cycle_step", "finished", "run", "stats_list", "ExecAux",
+__all__ = ["cycle_step", "finished", "run", "stats_list", "stats_dicts",
+           "diag_counts", "DIAG_FIELDS", "ExecAux",
            "VectorSim", "ABORT_LABELS", "check_cycle_cap", "aggregate_stats",
            "network_health", "resolve_device"]
 
@@ -80,6 +81,28 @@ class ExecAux(NamedTuple):
     wait_data: torch.Tensor      # nodes in WAIT_DATA at abort
     stalled: torch.Tensor        # nodes with a backlogged send queue at abort
     dst0: torch.Tensor           # in-flight flits destined to node 0 at abort
+
+
+#: ExecAux's diagnostic fields, in :func:`diag_counts`'s order
+DIAG_FIELDS = ("circ", "wait_dir", "wait_data", "stalled", "dst0")
+
+
+def diag_counts(st: torch.Tensor, inp: torch.Tensor,
+                q_size: torch.Tensor) -> torch.Tensor:
+    """Abort-diagnostic counters over the nodes of a state's leaves ``st``
+    ``(..., N)``, ``inp`` ``(..., N, 4, F)`` and ``q_size`` ``(..., N)``,
+    as int32 ``(..., 5)`` in :data:`DIAG_FIELDS` order: in-flight flits,
+    nodes in WAIT_DIR and in WAIT_DATA, nodes with a backlogged send
+    queue, in-flight flits bound for node 0.  Leading scenario axes are
+    kept.  The counts of a mesh's tiles add up to the mesh's."""
+    valid = inp[..., F_VALID] > 0
+    return torch.stack([
+        valid.sum(dim=(-2, -1), dtype=I32),
+        (st == ST_WAIT_DIR).sum(dim=-1, dtype=I32),
+        (st == ST_WAIT_DATA).sum(dim=-1, dtype=I32),
+        (q_size > 0).sum(dim=-1, dtype=I32),
+        (valid & (inp[..., F_DST] == 0)).sum(dim=(-2, -1), dtype=I32)],
+        dim=-1)
 
 
 class _Mon(NamedTuple):
@@ -178,12 +201,7 @@ def _mon_update(mon: _Mon, st: SimState, active: torch.Tensor,
     fire_lv = fire_lv & ~fire_sat      # saturation is the sharper diagnosis
     fire = fire_lv | fire_sat
     aux = mon.aux
-    valid = st.inp[..., F_VALID] > 0
-    circ = valid.sum(dim=(-2, -1), dtype=I32)
-    dst0 = (valid & (st.inp[..., F_DST] == 0)).sum(dim=(-2, -1), dtype=I32)
-    stalled = (st.q_size > 0).sum(dim=-1, dtype=I32)
-    wd = (st.st == ST_WAIT_DIR).sum(dim=-1, dtype=I32)
-    wdd = (st.st == ST_WAIT_DATA).sum(dim=-1, dtype=I32)
+    diag = diag_counts(st.st, st.inp, st.q_size)            # (B, 5)
     snap = lambda new, old: torch.where(fire, new, old)
     aux = ExecAux(
         abort=torch.where(fire, torch.where(fire_sat, ABORT_SATURATION,
@@ -193,12 +211,8 @@ def _mon_update(mon: _Mon, st: SimState, active: torch.Tensor,
         abort_stats=torch.where(fire[:, None], st.stats, aux.abort_stats),
         abort_stats_hi=torch.where(fire[:, None], st.stats_hi,
                                    aux.abort_stats_hi),
-        circ=snap(circ, aux.circ),
-        wait_dir=snap(wd, aux.wait_dir),
-        wait_data=snap(wdd, aux.wait_data),
-        stalled=snap(stalled, aux.stalled),
-        dst0=snap(dst0, aux.dst0),
-    )
+        **{k: snap(diag[:, j], getattr(aux, k))
+           for j, k in enumerate(DIAG_FIELDS)})
     return _Mon(prog, frz, refs_anchor, aux)
 
 
@@ -276,10 +290,23 @@ def stats_list(s: SimState, aux: ExecAux) -> List[Dict[str, int]]:
     ``cycles`` + ``finished``).  Aborted scenarios report the snapshot
     taken at the abort cycle plus ``aborted`` (label) and the diagnostic
     counters."""
-    stats = np.atleast_2d(stats_totals(s.stats_hi, s.stats))
-    cyc = np.atleast_1d(s.cycle.cpu().numpy())
-    fin = np.atleast_1d(finished(s).cpu().numpy())
-    a = {k: np.atleast_1d(v.cpu().numpy()) for k, v in aux._asdict().items()}
+    return stats_dicts(s.stats_hi, s.stats, s.cycle, finished(s), aux)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def stats_dicts(stats_hi, stats, cycle, fin, aux: ExecAux
+                ) -> List[Dict[str, int]]:
+    """:func:`stats_list` from its parts: the stats pair, the clock and
+    the termination flag of each scenario (tensors or numpy arrays, solo
+    or ``(B, ...)``), and the ExecAux.  The sharded backend calls it with
+    the flag reduced over its tiles."""
+    stats = np.atleast_2d(stats_totals(stats_hi, stats))
+    cyc = np.atleast_1d(_host(cycle))
+    fin = np.atleast_1d(_host(fin))
+    a = {k: np.atleast_1d(_host(v)) for k, v in aux._asdict().items()}
     a["abort_stats"] = np.atleast_2d(
         stats_totals(aux.abort_stats_hi, aux.abort_stats))
     out = []

@@ -128,13 +128,18 @@ class Geometry(NamedTuple):
 
 
 class NodeCtx(NamedTuple):
-    """Per-node identity and geometry as tensors on the run's device."""
+    """Per-node identity and geometry as tensors on the run's device.
 
-    node_id: torch.Tensor     # (N,) int32 global node id (r*C + c)
-    node_r: torch.Tensor      # (N,) int32 row
-    node_c: torch.Tensor      # (N,) int32 col
-    valid_port: torch.Tensor  # (N, 4) bool
-    node: torch.Tensor        # (N,) int64 — the node ids as an index
+    On a tile of a sharded run (:func:`make_tile_ctx`) the two ids part
+    ways: ``node_id`` is the global id, which the directory's home test
+    and the router compare against, and ``node`` is the row of the
+    tile-local arrays, which the phases index with."""
+
+    node_id: torch.Tensor     # (Nl,) int32 global node id (r*C + c)
+    node_r: torch.Tensor      # (Nl,) int32 global row
+    node_c: torch.Tensor      # (Nl,) int32 global col
+    valid_port: torch.Tensor  # (Nl, 4) bool — links of the global mesh
+    node: torch.Tensor        # (Nl,) int64 — the local row index, arange(Nl)
 
 
 def make_geometry(rows: int, cols: int) -> Geometry:
@@ -167,6 +172,76 @@ def make_node_ctx(cfg: SimConfig, device) -> NodeCtx:
                    torch.as_tensor(geo.node_c, device=device),
                    torch.as_tensor(geo.valid_port, device=device),
                    torch.arange(cfg.num_nodes, device=device))
+
+
+def make_tile_ctx(cfg: SimConfig, rows: slice, cols: slice,
+                  device) -> NodeCtx:
+    """The :class:`NodeCtx` of one tile of a sharded run: the routers in
+    global rows ``rows`` and columns ``cols``, in row-major tile order.
+    ``node_id``, ``node_r``, ``node_c`` and ``valid_port`` are the global
+    mesh's (so mesh edges keep no links and wraparound halos are
+    masked), ``node`` is ``arange(Nl)``: the JAX package's tile step
+    builds the same pair (``repro/core/sharded.py``, ``cache.py``'s
+    ``jnp.arange(n)`` beside ``ctx.node_id``)."""
+    geo = make_geometry(cfg.rows, cfg.cols)
+
+    def take(a: np.ndarray) -> np.ndarray:
+        g = a.reshape((cfg.rows, cfg.cols) + a.shape[1:])
+        return np.ascontiguousarray(
+            g[rows, cols].reshape((-1,) + a.shape[1:]))
+    nid = take(np.arange(cfg.num_nodes, dtype=np.int32))
+    return NodeCtx(torch.as_tensor(nid, device=device),
+                   torch.as_tensor(take(geo.node_r), device=device),
+                   torch.as_tensor(take(geo.node_c), device=device),
+                   torch.as_tensor(take(geo.valid_port), device=device),
+                   torch.arange(nid.shape[0], device=device))
+
+
+#: leaves whose leading dims are (scenario?, node): the node axis is cut
+#: into tiles for a sharded run; every other leaf (stats, clock, knobs)
+#: is per-scenario state, replicated over the tiles (the JAX package's
+#: ``repro.core.sharded._NODE_LEAVES``)
+NODE_LEAVES = frozenset((
+    "st", "ctr", "tr_ptr", "pend_addr", "install_mode", "pkt_ctr",
+    "lru_clock", "l1_tag", "l1_lru", "l1_owner", "l2_tag", "l2_lru",
+    "l2_mig", "l2_last", "l2_streak", "dir_loc", "fwd_tag", "fwd_dst",
+    "fwd_ptr", "inp", "q_desc", "q_head", "q_size", "q_fid", "rob", "pc",
+    "trace",
+))
+
+
+def to_grid(s: SimState, cfg: SimConfig) -> SimState:
+    """Reshape node-major leaves ``(B?, N, ...) -> (B?, R, C, ...)`` (a
+    view); the scenario axis, if any, is detected from ``s.cycle``."""
+    lead = s.cycle.dim()
+
+    def rs(name, x):
+        if name not in NODE_LEAVES:
+            return x
+        return x.reshape(x.shape[:lead] + (cfg.rows, cfg.cols)
+                         + x.shape[lead + 1:])
+    return SimState(*(rs(k, v) for k, v in zip(SimState._fields, s)))
+
+
+def tile_state(s: SimState, cfg: SimConfig, rows: slice, cols: slice,
+               scenarios: Optional[slice] = None) -> SimState:
+    """One rank's part of a state built on the host: the routers in
+    global ``rows`` x ``cols`` of every node leaf (row-major, as
+    :func:`make_tile_ctx` orders them) and, for a batched state, the
+    ``scenarios`` slice of every leaf.  Returns contiguous copies."""
+    lead = s.cycle.dim()
+    if scenarios is not None and not lead:
+        raise ValueError("a scenario slice needs a batched state")
+    g = to_grid(s, cfg)
+
+    def cut(name, x):
+        if scenarios is not None:
+            x = x[scenarios]
+        if name in NODE_LEAVES:
+            x = x[(slice(None),) * lead + (rows, cols)]
+            x = x.reshape(x.shape[:lead] + (-1,) + x.shape[lead + 2:])
+        return x.clone()
+    return SimState(*(cut(k, v) for k, v in zip(SimState._fields, g)))
 
 
 def dir_shape(cfg: SimConfig) -> Tuple[int, ...]:

@@ -25,11 +25,13 @@ the sweep-wide ``SweepSpec.cfg``.  Mixed-shape scenario lists are handled
 one level up: :mod:`repro_torch.core.engine` buckets them by structural
 config and runs one sweep per bucket.
 
-A sweep runs on the one device it is given.  The JAX package shards the
-scenario axis over its local devices (padding an indivisible batch with
-copies of the last scenario); sharding scenarios over several GPUs is
-ROADMAP item 5 (multi-GPU), so here the device count is 1 and nothing is
-padded.
+Inside a process group (:mod:`repro_torch.dist`) the scenario axis is
+split over the ranks, as the JAX package shards it over its local
+devices: the batch is padded to a multiple of
+:func:`scenario_device_count` with copies of the last scenario, each rank
+drives its ``ceil(B / n)`` scenarios on its own device, and every rank
+gets all the results back, in scenario order.  Without a group a sweep
+runs on the one device it is given and nothing is padded.
 """
 from __future__ import annotations
 
@@ -39,8 +41,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
+from ..dist import rank, world_size
 from .config import SimConfig
 from .sim import _drive, check_cycle_cap, run, stats_list
 from .state import init_state
@@ -144,10 +148,11 @@ class SweepSpec:
 
 
 def scenario_device_count(batch: int, ndev: int) -> int:
-    """Devices the scenario axis uses: ``min(ndev, batch)``, at least 1.
-    The planner's cost model in :mod:`repro_torch.core.engine` counts
-    ``ceil(batch / n)`` scenario-steps per device, as the JAX package's
-    does; a sweep here runs on one device (``ndev`` 1)."""
+    """Devices (ranks) the scenario axis uses: ``min(ndev, batch)``, at
+    least 1.  :func:`run_sweep` pads an indivisible batch up to a
+    multiple of this count, so every rank carries ``ceil(batch / n)``
+    scenarios; the planner's cost model in :mod:`repro_torch.core.engine`
+    counts the same number, as the JAX package's does."""
     return max(min(ndev, batch), 1)
 
 
@@ -164,20 +169,44 @@ def run_sweep(spec: SweepSpec, max_cycles: Optional[int] = None,
         device: ``None`` (the GPU), ``"cuda"``, ``"cuda:<i>"`` or
             ``"cpu"``.  Without a GPU only ``"cpu"`` runs.
 
+    Inside a process group every rank must call it with the same spec;
+    each drives its share of the scenarios on its own ``device``.
+
     Returns: one stats dict per scenario, in scenario order, bit-identical
-    to what a solo ``run(sc.resolve_cfg(cfg), trace)`` would produce.
+    to what a solo ``run(sc.resolve_cfg(cfg), trace)`` would produce, on
+    every rank.
     """
     spec.validate()
     cfg = spec.cfg
     check_cycle_cap(cfg, max_cycles)
     dev = resolve_device(device)
-    s = init_state(cfg, spec.traces(), dev)
-    mig, thr, cen, eja = (torch.as_tensor(a, device=dev)
-                          for a in spec.knob_arrays())
-    s = s._replace(knob_mig=mig, knob_mig_thr=thr, knob_central=cen,
-                   knob_ej_age=eja)
-    s, aux = _drive(s, cfg, max_cycles or cfg.max_cycles, chunk)
-    return stats_list(s, aux)
+    traces = spec.traces()
+    knobs = spec.knob_arrays()
+    n = scenario_device_count(spec.size, world_size())
+    # pad an indivisible batch with copies of the last scenario (dropped
+    # from the results): copies finish with their original, and the
+    # scenarios are independent, so the results do not change
+    pad = (-spec.size) % n
+    if pad:
+        traces = np.concatenate([traces, np.repeat(traces[-1:], pad, 0)])
+        knobs = tuple(np.concatenate([a, np.repeat(a[-1:], pad, 0)])
+                      for a in knobs)
+    per = (spec.size + pad) // n
+    mine = slice(rank() * per, (rank() + 1) * per)
+    out: List[Dict[str, int]] = []
+    if rank() < n:
+        s = init_state(cfg, traces[mine], dev)
+        mig, thr, cen, eja = (torch.as_tensor(a[mine], device=dev)
+                              for a in knobs)
+        s = s._replace(knob_mig=mig, knob_mig_thr=thr, knob_central=cen,
+                       knob_ej_age=eja)
+        s, aux = _drive(s, cfg, max_cycles or cfg.max_cycles, chunk)
+        out = stats_list(s, aux)
+    if world_size() > 1:
+        parts: List = [None] * world_size()
+        dist.all_gather_object(parts, out)
+        out = [d for p in parts for d in p][:spec.size]
+    return out
 
 
 def run_sequential(spec: SweepSpec, max_cycles: Optional[int] = None,

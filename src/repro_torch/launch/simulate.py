@@ -6,8 +6,19 @@
 Every mode (except ``--serial``) routes through the execution-plan layer
 (:mod:`repro_torch.core.engine`): scenarios are bucketed by structural
 config, each bucket runs as one batched state, and a cost model picks a
-backend per bucket.  A run uses one device, so a bucket planned as
-sharded or composed runs on the sweep backend with a note.
+backend per bucket.  Run alone, the launcher uses one device, so a bucket
+planned as sharded or composed runs on the sweep backend with a note.
+Under ``torchrun`` every rank joins one process group and runs the plan
+on its own device (``cuda:$LOCAL_RANK``, or ``--device``), the sharded
+and composed backends tile the mesh over the ranks, and rank 0 alone
+prints the result, with ``ranks`` (and, for a solo run, the bucket's
+``grid``):
+    torchrun --nproc-per-node 4 -m repro_torch.launch.simulate \
+        --backend sharded --rows 64 --cols 64
+    torchrun --nproc-per-node 4 -m repro_torch.launch.simulate \
+        --backend sharded --rows 8 --cols 8 --device cpu
+The group's backend is ``nccl`` on CUDA and ``gloo`` on the CPU;
+``--dist-backend gloo`` lets several ranks share one card.
 
 Batched multi-scenario sweep (one batched state for all scenarios):
     ... --sweep --apps matmul,equake,mgrid --seeds 0,1
@@ -27,7 +38,8 @@ Runs on the GPU unless ``--device cpu`` is given; without a GPU the
 default fails rather than falling back to the CPU.  Prints the result as
 JSON with the JAX launcher's keys (``repro.launch.simulate``), plus
 ``device`` and ``arbitration_kernel_launches`` (the launches of the
-fused Phase-2 router kernel, which arbitrates) in every planner mode.
+fused Phase-2 router kernel, which arbitrates, summed over the ranks) in
+every planner mode.
 On CUDA that kernel is the only Phase-2 route, so the JAX launcher's
 ``--pallas-router`` has no counterpart.
 """
@@ -35,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 import warnings
@@ -84,9 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "'sweep' (batched scenarios), 'sharded' (one "
                          "scenario's mesh over devices), 'composed' "
                          "(scenarios x rows x cols over devices); 'auto' "
-                         "lets the cost model choose.  A run uses one "
-                         "device, so sharded and composed degrade to sweep "
-                         "with a note")
+                         "lets the cost model choose.  Run alone the "
+                         "launcher uses one device, so sharded and composed "
+                         "degrade to sweep with a note; under torchrun they "
+                         "run over the ranks")
     ap.add_argument("--sharded", action="store_true",
                     help="DEPRECATED legacy alias for --backend sharded "
                          "(emits a DeprecationWarning; will be removed)")
@@ -125,11 +139,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-cycles", type=int, default=200_000,
                     help="hard cycle cap per scenario")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to run on: 'cuda' (default), "
-                         "'cuda:<i>' or 'cpu'")
+                    help="torch device to run on: 'cuda' (default; under "
+                         "torchrun cuda:$LOCAL_RANK), 'cuda:<i>' or 'cpu'")
+    ap.add_argument("--dist-backend", choices=("auto", "nccl", "gloo"),
+                    default="auto",
+                    help="under torchrun, the process group's backend: "
+                         "'auto' (nccl on CUDA, gloo on the CPU), or name "
+                         "one; gloo lets several ranks share one card")
     ap.add_argument("--json", default=None,
                     help="also write the result payload to this file")
     return ap
+
+
+def _lead() -> bool:
+    """Whether this process prints: rank 0 under torchrun, or alone."""
+    return os.environ.get("RANK", "0") == "0"
 
 
 def _emit(payload, path) -> None:
@@ -154,7 +178,8 @@ def main(argv=None) -> None:
 
     if args.zoo == "list":
         from repro_torch.core.zoo import zoo_summary
-        print(zoo_summary())
+        if _lead():
+            print(zoo_summary())
         return
 
     modes = [m for m in ("serial", "sweep", "plan", "zoo") if getattr(args, m)]
@@ -187,14 +212,33 @@ def main(argv=None) -> None:
         stats = SerialSim(cfg, tr).run()
         stats["wall_s"] = round(time.perf_counter() - t0, 3)
         stats["nodes"] = cfg.num_nodes
-        _emit(stats, args.json)
+        if _lead():
+            _emit(stats, args.json)
         return
 
+    if "WORLD_SIZE" not in os.environ:
+        from repro_torch.device import resolve_device
+        _run_planner(args, cfg, resolve_device(args.device), None)
+        return
+    # under torchrun: one rank of a process group
+    import torch.distributed as dist
+    from repro_torch.dist import init_rank
+    device = init_rank(None if args.device == "cuda" else args.device,
+                       None if args.dist_backend == "auto"
+                       else args.dist_backend)
+    try:
+        _run_planner(args, cfg, device, dist)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_planner(args, cfg, device, dist) -> None:
+    """The planner modes on this rank.  Inside a process group (``dist``
+    is ``torch.distributed``, else ``None``) every rank runs the plan and
+    rank 0 alone prints."""
     from repro_torch.core import engine
-    from repro_torch.device import resolve_device
     from repro_torch.kernels.router_phase import LAUNCHES
 
-    device = resolve_device(args.device)
     force = args.backend if args.backend != "auto" else None
     if args.sharded:
         force = "sharded"
@@ -221,6 +265,13 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     per_scenario = engine.execute_plan(plan, chunk=args.chunk, device=device)
     dt = time.perf_counter() - t0
+    launches = LAUNCHES.n
+    if dist is not None:
+        counts = [None] * dist.get_world_size()
+        dist.all_gather_object(counts, launches)
+        launches = sum(counts)
+        if dist.get_rank() != 0:
+            return
 
     # payload schema follows the *mode*, not the scenario count: --sweep,
     # --plan and --zoo always emit the {plan, scenarios, ...} form, even
@@ -232,6 +283,8 @@ def main(argv=None) -> None:
         payload["backend"] = plan.buckets[0].backend
         if plan.buckets[0].note:
             payload["backend_note"] = plan.buckets[0].note
+        if plan.buckets[0].backend in ("sharded", "composed"):
+            payload["grid"] = list(plan.buckets[0].grid)
     else:
         payload = {
             **({"zoo": args.zoo} if args.zoo else {}),
@@ -245,7 +298,9 @@ def main(argv=None) -> None:
             "scenarios_per_sec": round(len(scenarios) / dt, 3),
         }
     payload["device"] = str(device)
-    payload["arbitration_kernel_launches"] = LAUNCHES.n
+    payload["arbitration_kernel_launches"] = launches
+    if dist is not None:
+        payload["ranks"] = dist.get_world_size()
     _emit(payload, args.json)
 
 

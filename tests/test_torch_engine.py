@@ -268,13 +268,20 @@ def test_execute_plan_equals_solo_runs_and_the_reference():
 
 
 def test_multi_device_runners_are_not_ported_yet(monkeypatch):
+    """The spatial and composed runners are ported (ROADMAP item 5,
+    ``tests/test_torch_composed.py`` runs them on ranks): outside a
+    process group of enough ranks they refuse the bucket, naming the
+    ranks it needs, unless ``execute_plan`` degrades it to the sweep
+    backend first, as it does whenever the group is too small."""
     _, tscs = both(dict(rows=4, cols=4, centralized_directory=False),
                    [(None, None, "matmul", 0, 4, {})])
     plan = tengine.compile_plan(tscs, ndev=4, force_backend="sharded")
     assert plan.buckets[0].backend == "sharded"
-    monkeypatch.setattr(tengine, "RUN_DEVICES", 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
+    assert tengine.RUN_DEVICES == tengine.run_devices() == 1
+    monkeypatch.setattr(tengine, "run_devices", lambda: 4)
+    with pytest.raises(ValueError, match="needs 4 rank"):
         tengine.execute_plan(plan, device="cpu")
     plan = tengine.compile_plan(tscs * 2, ndev=4, force_backend="composed")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
+    assert plan.buckets[0].backend == "composed"
+    with pytest.raises(ValueError, match=r"needs \d rank"):
         tengine.execute_plan(plan, device="cpu")

@@ -292,3 +292,72 @@ def test_train_step_on_the_card_equals_the_cpu_run(cuda):
         off += int((d > 1e-6).sum())
         total += d.numel()
     assert off <= 1e-3 * total, (off, total)
+
+
+def _sharded_case():
+    cfg = SimConfig(rows=8, cols=8, addr_bits=16, centralized_directory=False,
+                    dir_layout="home", migrate_threshold=2)
+    tr = app_trace(cfg, "mgrid", 10, 2)
+    return cfg, tr, sim.run(cfg, tr, chunk=64, device="cpu")
+
+
+def test_sharded_one_nccl_rank_equals_the_cpu_run(cuda, tmp_path):
+    """The whole sharded path (subgroups, termination and statistics
+    all-reduces) on one NCCL rank; NCCL with more ranks needs a card
+    each, which a one-card machine cannot show."""
+    from repro_torch import dist as rdist
+    from repro_torch.core.sharded import run_sharded
+    cfg, tr, want = _sharded_case()
+    (got,) = rdist.spawn(run_sharded, 1, (cfg, tr, (1, 1, 1), None, 64),
+                         device="cuda:0", backend="nccl",
+                         init_method=f"file://{tmp_path}/store",
+                         timeout_s=600)
+    assert got == want
+
+
+def test_sharded_two_gloo_ranks_on_one_card_equal_the_cpu_run(cuda,
+                                                              tmp_path):
+    """Two tiles (1 x 2) as two gloo ranks on cuda:0: the compute on the
+    card, the halo slabs through host tensors."""
+    from repro_torch import dist as rdist
+    from repro_torch.core.sharded import run_sharded
+    cfg, tr, want = _sharded_case()
+    got = rdist.spawn(run_sharded, 2, (cfg, tr, (1, 1, 2), None, 64),
+                      device="cuda:0", backend="gloo",
+                      init_method=f"file://{tmp_path}/store", timeout_s=600)
+    assert got == [want, want]
+
+
+def test_two_nccl_ranks_on_one_card_fail_clearly(cuda, tmp_path):
+    from repro_torch import dist as rdist
+    from repro_torch.core.sharded import run_sharded
+    cfg, tr, _ = _sharded_case()
+    with pytest.raises(RuntimeError,
+                       match="NCCL cannot hold two ranks on one GPU"):
+        rdist.spawn(run_sharded, 2, (cfg, tr, (1, 1, 2), None, 64),
+                    device="cuda:0", backend="nccl",
+                    init_method=f"file://{tmp_path}/store", timeout_s=300)
+
+
+def gloo_send_a_cuda_tensor():
+    """Rank 0 sends a CUDA tensor to rank 1 over gloo."""
+    import torch.distributed as dist
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t = torch.arange(4, device=dev, dtype=torch.int32)
+    peer = 1 - dist.get_rank()
+    ops = [dist.P2POp(dist.isend, t, peer),
+           dist.P2POp(dist.irecv, torch.empty_like(t), peer)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+
+
+def test_gloo_cannot_send_cuda_tensors(cuda, tmp_path):
+    """Why the sharded backend stages its halo slabs through host tensors
+    on gloo with a CUDA device: gloo's point-to-point send of a CUDA
+    tensor aborts the rank (a host write of a device address); if a
+    later torch takes them, the staging can go."""
+    from repro_torch import dist as rdist
+    with pytest.raises(RuntimeError, match="rank"):
+        rdist.spawn(gloo_send_a_cuda_tensor, 2, device="cuda:0",
+                    backend="gloo", init_method=f"file://{tmp_path}/store",
+                    timeout_s=120)

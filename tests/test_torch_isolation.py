@@ -53,7 +53,8 @@ def test_port_imports_no_jax_and_no_repro():
         "repro_torch.core.ref_serial, repro_torch.core.trace, "
         "repro_torch.train.optim, repro_torch.train.data, "
         "repro_torch.train.checkpoint, repro_torch.train.loop, "
-        "repro_torch.launch.train, repro_torch.models.costs\n"
+        "repro_torch.launch.train, repro_torch.models.costs, "
+        "repro_torch.core.sharded, repro_torch.dist\n"
         "from repro_torch.configs import registry\n"
         "[registry.get(a) for a in registry.ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -151,6 +152,29 @@ def test_train_entry_points_need_a_gpu_unless_asked_for_the_cpu(tmp_path):
     tr = Trainer(cfg, opt, data, loop, device="cpu")
     assert tr.run()["steps"] == 1
     assert tr.params["embed"].device.type == "cpu"
+
+
+def test_sharded_entry_points_need_a_gpu_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from repro_torch.core.sharded import run_composed, run_sharded
+    from repro_torch.core.sweep import ScenarioSpec, SweepSpec
+    from repro_torch.dist import init_rank
+    cfg = SimConfig(rows=2, cols=2, centralized_directory=False,
+                    dir_layout="home")
+    tr = np.full((4, 2), 64, np.int32)
+    spec = SweepSpec(cfg, (ScenarioSpec("matmul", 0, 2),))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_sharded(cfg, tr, (1, 1, 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_composed(spec, (1, 1, 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_rank()                   # a rank's default device is CUDA
+    with pytest.raises(ValueError, match="nccl backend needs a CUDA"):
+        init_rank("cpu", "nccl")
+    # asked for the CPU, each runs there
+    assert run_sharded(cfg, tr, (1, 1, 1), device="cpu")["finished"] == 1
+    assert run_composed(spec, (1, 1, 1), device="cpu")[0]["finished"] == 1
 
 
 def test_launcher_on_the_cpu(tmp_path, capsys):
