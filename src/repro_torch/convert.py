@@ -27,7 +27,7 @@ from .models.api import abstract_params, init_cache
 from .models.config import ModelConfig
 from .models.params import abstract_leaf
 from .models.zoo import param_tree
-from .train.optim import OptConfig, OptState, tree_map
+from .train.optim import OptConfig, OptState
 
 
 def state_from_numpy(leaves: Mapping[str, np.ndarray], device) -> SimState:
@@ -63,34 +63,40 @@ def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _tree_from_numpy(tree: Mapping[str, Any], like: Mapping[str, Any],
-                     device, path: str = "") -> Dict[str, Any]:
+def _tree_from_numpy(tree, like, device, path: str = ""):
     """``tree``'s leaves as tensors on ``device``, checked leaf by leaf
-    against the shape-only tree ``like`` (keys, shapes and dtypes)."""
-    missing = set(like) - set(tree)
-    extra = set(tree) - set(like)
-    if missing or extra:
-        raise ValueError(f"tree{path} does not match: missing "
-                         f"{sorted(missing)}, unexpected {sorted(extra)}")
-    out = {}
-    for k, want in like.items():
-        if isinstance(want, Mapping):
-            if not isinstance(tree[k], Mapping):
-                raise ValueError(f"tree{path}[{k!r}] should be a subtree")
-            out[k] = _tree_from_numpy(tree[k], want, device,
-                                      f"{path}[{k!r}]")
-            continue
-        t = _tensor_from_numpy(tree[k], device)
-        if tuple(t.shape) != tuple(want.shape) or t.dtype != want.dtype:
-            raise ValueError(f"tree{path}[{k!r}] is {t.dtype} "
-                             f"{tuple(t.shape)}, expected {want.dtype} "
-                             f"{tuple(want.shape)}")
-        out[k] = t
-    return out
+    against the shape-only tree ``like`` (keys, tuple lengths, shapes and
+    dtypes).  Subtrees are mappings or tuples (the hybrid family's
+    per-layer caches)."""
+    if isinstance(like, Mapping):
+        if not isinstance(tree, Mapping):
+            raise ValueError(f"tree{path} should be a mapping")
+        missing = set(like) - set(tree)
+        extra = set(tree) - set(like)
+        if missing or extra:
+            raise ValueError(f"tree{path} does not match: missing "
+                             f"{sorted(missing)}, unexpected {sorted(extra)}")
+        return {k: _tree_from_numpy(tree[k], want, device, f"{path}[{k!r}]")
+                for k, want in like.items()}
+    if isinstance(like, tuple):
+        if not isinstance(tree, (tuple, list)) or len(tree) != len(like):
+            raise ValueError(f"tree{path} should be a sequence of "
+                             f"{len(like)}")
+        return tuple(_tree_from_numpy(t, want, device, f"{path}[{i}]")
+                     for i, (t, want) in enumerate(zip(tree, like)))
+    t = _tensor_from_numpy(tree, device)
+    if tuple(t.shape) != tuple(like.shape) or t.dtype != like.dtype:
+        raise ValueError(f"tree{path} is {t.dtype} {tuple(t.shape)}, "
+                         f"expected {like.dtype} {tuple(like.shape)}")
+    return t
 
 
-def _tree_to_numpy(tree: Mapping[str, Any]) -> Dict[str, Any]:
-    return tree_map(_tensor_to_numpy, tree)
+def _tree_to_numpy(tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_to_numpy(v) for v in tree)
+    return _tensor_to_numpy(tree)
 
 
 def params_from_numpy(tree: Mapping[str, Any], device,
@@ -107,14 +113,57 @@ def params_to_numpy(params: Mapping[str, Any]) -> Dict[str, Any]:
     return _tree_to_numpy(params)
 
 
+def _cache_dims(tree: Mapping[str, Any], cfg: ModelConfig):
+    """(batch, cache length) of a cache tree of ``cfg``'s family, read
+    from its own leaves.  An SSM cache has no length (1 stands for it);
+    a hybrid cache's is its longest layer's (a global layer's, or the
+    window, which any longer length gives too)."""
+    def dims(leaf, name, ndim, at):
+        shape = np.shape(leaf)
+        if len(shape) != ndim:
+            raise ValueError(f"cache leaf {name} has shape {shape}, "
+                             f"expected {ndim} dimensions")
+        return tuple(shape[i] for i in at)
+
+    fam = cfg.family
+    if fam == "ssm":                                # (L, B, K-1, conv)
+        return dims(tree["conv"], "'conv'", 4, (1,)) + (1,)
+    if fam == "hybrid":                             # per layer (B, T, KV, D)
+        if not tree["layers"]:
+            raise ValueError("a hybrid cache with no layers")
+        bt = [dims(layer[0], f"['layers'][{l}][0]", 4, (0, 1))
+              for l, layer in enumerate(tree["layers"])]
+        return bt[0][0], max(t for _, t in bt)
+    if fam == "vlm":                                # (g, inner, B, T, KV, D)
+        return dims(tree["k"], "'k'", 6, (2, 3))
+    return dims(tree["k"], "'k'", 5, (1, 2))        # (L, B, T, KV, D)
+
+
+def _state_like(want: torch.Tensor, got) -> torch.Tensor:
+    """An SSM state leaf leaves a decode step in float32 (``ssd_decode``,
+    in both packages): accept that as well as the compute dtype."""
+    if np.asarray(got).dtype == np.float32:
+        return torch.empty(want.shape, dtype=torch.float32, device="meta")
+    return want
+
+
 def cache_from_numpy(tree: Mapping[str, Any], device,
                      cfg: ModelConfig) -> Dict[str, Any]:
     """A port decode cache on ``device`` from the JAX package's cache tree
-    with numpy leaves; batch and cache length are read from its ``k``
-    leaf (L, B, T, KV, D)."""
-    _, batch, cache_len = np.shape(tree["k"])[:3]
-    return _tree_from_numpy(tree, init_cache(cfg, batch, cache_len, "meta"),
-                            device)
+    for ``cfg`` with numpy leaves (a hybrid cache's per-layer tuples as
+    tuples or lists).  Batch and cache length are read from the family's
+    own leaves; the SSM state may be float32, as a decode step leaves
+    it."""
+    batch, cache_len = _cache_dims(tree, cfg)
+    like = init_cache(cfg, batch, cache_len, "meta")
+    if cfg.family == "ssm":
+        like["h"] = _state_like(like["h"], tree["h"])
+    elif cfg.family == "hybrid" and len(tree["layers"]) == len(
+            like["layers"]):
+        like["layers"] = tuple(
+            want[:3] + (_state_like(want[3], got[3]),)
+            for want, got in zip(like["layers"], tree["layers"]))
+    return _tree_from_numpy(tree, like, device)
 
 
 def cache_to_numpy(cache: Mapping[str, Any]) -> Dict[str, Any]:

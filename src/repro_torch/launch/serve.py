@@ -4,7 +4,10 @@ with continuous batching.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --requests 8 --max-new 16
 
-The flags of the JAX package's ``repro.launch.serve``, plus ``--device``:
+Any ``--arch`` of the registry (``repro_torch.configs.registry.ARCH_IDS``:
+dense, moe, ssm, hybrid, vlm and audio families), as the JAX package's
+launcher.  The flags of the JAX package's ``repro.launch.serve``, plus
+``--device``:
 runs on the GPU unless ``--device cpu`` is given, and without a GPU the
 default fails rather than falling back to the CPU.  Parameters are random,
 from ``--seed`` (the port's own initialisation).  Prints the JAX

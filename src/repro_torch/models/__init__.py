@@ -1,3 +1,3 @@
-"""The LM stack of the port: configuration, parameter trees, layers, the
-model zoo and its public API (the dense family; the others are later
-slices, see ``ROADMAP.md``)."""
+"""The LM stack of the port: configuration, parameter trees, layers
+(attention, MoE, Mamba-2 SSD), the model zoo of all six families and its
+public API."""

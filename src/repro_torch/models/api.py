@@ -56,8 +56,11 @@ def init_params(cfg: ModelConfig, seed: int, device=None):
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
     """A zeroed decode cache on ``device`` (default ``cuda``; ``meta``
-    gives a shape-only one): K/V in the compute dtype, ``idx`` a 0-d int32
-    tensor."""
+    gives a shape-only one) for any family: every leaf in the compute
+    dtype (K/V, SSM conv and state, vlm ``img``, audio ``enc``), ``idx``
+    a 0-d int32 tensor.  The vlm ``img`` and audio ``enc`` start at zero,
+    as the JAX package leaves them; a caller with an image or an encoded
+    clip writes it in."""
     dev = resolve_device(device)
     dt = getattr(torch, cfg.compute_dtype)
     leaf = lambda name, shape, spec, sc: torch.zeros(
@@ -68,8 +71,13 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
 def make_inputs(cfg: ModelConfig, kind: str, batch: int, seq: int,
                 rng: np.random.Generator, device=None
                 ) -> Dict[str, torch.Tensor]:
-    """Concrete random inputs from a numpy generator (the same draws as
-    the JAX package's ``make_inputs`` for the dense family)."""
+    """Concrete random inputs from a numpy generator: the same draws, in
+    the same order, as the JAX package's ``make_inputs``.  ``tokens``
+    (and ``labels`` for ``kind="train"``) int32; for a train or prefill
+    batch the vlm family adds ``img`` (B, n_img_tokens, d) and the audio
+    family ``frames`` (B, n_audio_frames, d), standard normal in the
+    compute dtype (rounded to float32 first, as ``jnp.asarray`` rounds a
+    float64 array to bfloat16)."""
     dev = resolve_device(device)
     out = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab, (batch, seq)), dtype=torch.int32,
@@ -78,6 +86,13 @@ def make_inputs(cfg: ModelConfig, kind: str, batch: int, seq: int,
         out["labels"] = torch.as_tensor(
             rng.integers(0, cfg.vocab, (batch, seq)), dtype=torch.int32,
             device=dev)
+    if kind in ("train", "prefill"):
+        dt = getattr(torch, cfg.compute_dtype)
+        for fam, key, n in (("vlm", "img", cfg.n_img_tokens),
+                            ("audio", "frames", cfg.n_audio_frames)):
+            if cfg.family == fam:
+                out[key] = torch.from_numpy(rng.standard_normal(
+                    (batch, n, cfg.d_model)).astype(np.float32)).to(dev, dt)
     return out
 
 

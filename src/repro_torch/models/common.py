@@ -268,3 +268,25 @@ def swiglu(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     u = torch.einsum("bsd,df->bsf", y, p["w3"].to(y.dtype))
     z = torch.nn.functional.silu(g.float()).to(y.dtype) * u
     return x + torch.einsum("bsf,fd->bsd", z, p["w2"].to(y.dtype))
+
+
+def cross_attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     kv_embed: torch.Tensor, gated: bool = True):
+    """Cross-attention onto precomputed embeddings (vision / audio):
+    pre-norm, no mask, no RoPE, residual; ``gated`` scales the output by
+    ``tanh(p["gate"])``."""
+    b, s, _ = x.shape
+    t = kv_embed.shape[1]
+    y = rmsnorm(x, p["ln"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", y, p["wq"].to(y.dtype))
+    kvn = rmsnorm(kv_embed, p["ln_kv"], cfg.norm_eps) if "ln_kv" in p \
+        else kv_embed
+    k = torch.einsum("btd,dhk->bthk", kvn.to(y.dtype), p["wk"].to(y.dtype))
+    v = torch.einsum("btd,dhk->bthk", kvn.to(y.dtype), p["wv"].to(y.dtype))
+    qpos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    kpos = torch.zeros((b, t), dtype=torch.int32, device=x.device)
+    o = attention(cfg, q, k, v, qpos, kpos, causal=False)
+    o = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    if gated:
+        o = o * torch.tanh(p["gate"].float()).to(o.dtype)
+    return x + o

@@ -74,8 +74,8 @@ class ModelConfig:
     # bf16 once a step (train.step); the gradient lands on the float32
     # leaves.  No gathers here: nothing is sharded.
     cast_params_bf16: bool = False
-    # Kept so configs carry across; no effect here (expert sharding; the
-    # moe family is a later slice).
+    # Kept so configs carry across; no effect here (expert sharding:
+    # nothing is sharded on one device).
     moe_mode: str = "auto"           # auto | ep | ftp (expert sharding)
 
     @property
@@ -100,7 +100,13 @@ class ModelConfig:
         return self.d_inner // self.ssm_d_head
 
     def n_params(self) -> int:
-        """Total parameter count (used for 6·N·D roofline math)."""
+        """Total parameter count (used for 6·N·D roofline math).
+
+        The JAX package's formula, kept as it is.  It leaves out the qkv
+        biases (qwen2-0.5b, qwen2-moe-a2.7b) and counts the ssm, hybrid,
+        vlm and audio trees otherwise than they are built (``ROADMAP.md``
+        §3); the tree's own size is the sum of the sizes of
+        ``models.api.abstract_params(cfg)``'s leaves."""
         d, ff, v, L = self.d_model, self.d_ff, self.vocab, self.n_layers
         h, kv, hd = self.n_heads, self.kv_heads, self.head_dim
         attn = d * h * hd + 2 * d * kv * hd + h * hd * d

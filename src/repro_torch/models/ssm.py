@@ -1,0 +1,177 @@
+"""Mamba-2 SSD (state-space duality, arXiv:2405.21060).
+
+The counterpart of the JAX package's ``repro.models.ssm``, with the same
+arithmetic in the same dtypes.  The chunked SSD form runs the forward
+(training/prefill): intra-chunk terms are dense products, and the
+inter-chunk recurrence is a short loop over chunk states (``lax.scan``
+there).  Decode is the O(1) recurrent update, whose state comes out in
+float32 whatever dtype it went in with.  Single SSM group (B/C shared
+across heads), like mamba2-130m.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from .common import rmsnorm
+from .config import ModelConfig
+
+F32 = torch.float32
+CHUNK = 128
+
+
+def segsum(x: torch.Tensor) -> torch.Tensor:
+    """x: (..., Q) -> (..., Q, Q) lower-tri segment sums: out[i,j] = sum_{j<m<=i} x[m]."""
+    q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    return torch.where(mask, out, -torch.inf)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor,
+                h0: Optional[torch.Tensor] = None):
+    """SSD scan.
+
+    x:  (B, S, H, P)  inputs per head
+    dt: (B, S, H)     softplus'd step sizes
+    a_log: (H,)       -exp(a_log) is the decay rate
+    b, c: (B, S, N)   shared-input/output projections (single group)
+    h0: (B, H, P, N)  optional initial state.
+    Returns (y (B, S, H, P) in x's dtype, h_final (B, H, P, N) float32).
+    """
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    q = min(CHUNK, s)
+    assert s % q == 0, (s, q)
+    nc = s // q
+
+    a = -torch.exp(a_log.float())                        # (H,) negative
+    dta = dt.float() * a[None, None, :]                  # (B, S, H)
+    xdt = x.float() * dt.float()[..., None]              # (B, S, H, P)
+
+    # reshape into chunks
+    dta_c = dta.reshape(bsz, nc, q, h)
+    x_c = xdt.reshape(bsz, nc, q, h, p)
+    b_c = b.float().reshape(bsz, nc, q, n)
+    c_c = c.float().reshape(bsz, nc, q, n)
+
+    # intra-chunk (diagonal) term: attention-like with decay kernel
+    # (the exp(segsum) factor is 0 above the diagonal -> causal by mask)
+    l = torch.exp(segsum(dta_c.permute(0, 1, 3, 2)))     # (B, nc, H, Q, Q)
+    scores = torch.einsum("bcqn,bckn->bcqk", c_c, b_c)   # (B, nc, Q, Q)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", scores[:, :, None] * l, x_c)
+
+    # chunk-final states: sum_k decay(end..k) * B_k x_k
+    dta_cs = torch.cumsum(dta_c, dim=2)                  # (B, nc, Q, H)
+    decay_to_end = torch.exp(dta_cs[:, :, -1:, :] - dta_cs)  # (B, nc, Q, H)
+    states = torch.einsum("bckn,bckhp->bchpn", b_c,
+                          decay_to_end[..., None] * x_c)
+
+    # inter-chunk recurrence over chunk index; each chunk sees the state
+    # from before it
+    chunk_decay = torch.exp(dta_cs[:, :, -1, :])         # (B, nc, H)
+    carry = torch.zeros((bsz, h, p, n), dtype=F32, device=x.device) \
+        if h0 is None else h0.float()
+    h_prevs = []
+    for ci in range(nc):
+        h_prevs.append(carry)
+        carry = carry * chunk_decay[:, ci, :, None, None] + states[:, ci]
+    h_prevs = torch.stack(h_prevs, dim=1)                # (B, nc, H, P, N)
+
+    # off-diagonal: contribution of carried state into each position
+    decay_from_start = torch.exp(dta_cs)                 # (B, nc, Q, H)
+    y_off = torch.einsum("bcqn,bchpn->bcqhp", c_c, h_prevs) \
+        * decay_from_start[..., None]
+
+    y = (y_diag + y_off).reshape(bsz, s, h, p)
+    return y.to(x.dtype), carry
+
+
+def ssd_decode(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+               b: torch.Tensor, c: torch.Tensor, h: torch.Tensor):
+    """One-token recurrent update.  x: (B, 1, H, P); b/c: (B, 1, N);
+    h: (B, H, P, N) -> (y (B, 1, H, P) in x's dtype, h' float32)."""
+    a = -torch.exp(a_log.float())
+    dta = dt[:, 0].float() * a[None, :]                  # (B, H)
+    decay = torch.exp(dta)[:, :, None, None]
+    xdt = x[:, 0].float() * dt[:, 0].float()[..., None]  # (B, H, P)
+    h_new = h.float() * decay + torch.einsum("bhp,bn->bhpn", xdt,
+                                             b[:, 0].float())
+    y = torch.einsum("bhpn,bn->bhp", h_new, c[:, 0].float())
+    return y[:, None].to(x.dtype), h_new
+
+
+def causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv1d.  xbc: (B, S, D); w: (K, D); state (B, K-1, D).
+    Returns (y (B, S, D), new_state (B, K-1, D)), both in xbc's dtype.
+
+    The taps are summed in order, in the promoted dtype of xbc and w (a
+    bfloat16 input against float32 weights sums in float32, as jnp
+    promotes it)."""
+    k = w.shape[0]
+    if state is None:
+        pad = xbc.new_zeros((xbc.shape[0], k - 1, xbc.shape[2]))
+    else:
+        pad = state.to(xbc.dtype)
+    full = torch.cat([pad, xbc], dim=1)                  # (B, S+K-1, D)
+    s = xbc.shape[1]
+    y = sum(full[:, i:i + s] * w[i][None, None, :] for i in range(k))
+    new_state = full[:, full.shape[1] - (k - 1):] if k > 1 else pad
+    return torch.nn.functional.silu((y + bias[None, None]).float()
+                                    ).to(xbc.dtype), new_state
+
+
+def mamba2_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
+               cache: Optional[Tuple] = None, gated: bool = True):
+    """Full mamba2 mixer.  x: (B, S, d_model) -> (y, new_cache).
+
+    cache = (conv_state (B, K-1, conv_dim), ssm_state (B, H, P, N)).
+    Param dict p: in_z (d, din) [optional], in_x (d, din), in_b (d, N),
+    in_c (d, N), in_dt (d, H), conv_w (K, din+2N), conv_b, a_log (H,),
+    d_skip (H,), dt_bias (H,), out (din, d).
+    """
+    bsz, s, _ = x.shape
+    din = cfg.d_inner
+    nh, ph, ns = cfg.n_ssm_heads, cfg.ssm_d_head, cfg.ssm_state
+
+    xi = torch.einsum("bsd,de->bse", x, p["in_x"].to(x.dtype))
+    bb = torch.einsum("bsd,dn->bsn", x, p["in_b"].to(x.dtype))
+    cc = torch.einsum("bsd,dn->bsn", x, p["in_c"].to(x.dtype))
+    dt = torch.einsum("bsd,dh->bsh", x, p["in_dt"].to(x.dtype))
+    # jax.nn.softplus is logaddexp(x, 0)
+    dt = dt.float() + p["dt_bias"].float()
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))
+
+    xbc = torch.cat([xi, bb, cc], dim=-1)
+    conv_state = None if cache is None else cache[0]
+    xbc, conv_state_new = causal_conv(xbc, p["conv_w"], p["conv_b"],
+                                      conv_state)
+    xi = xbc[..., :din]
+    bb = xbc[..., din:din + ns]
+    cc = xbc[..., din + ns:]
+
+    xh = xi.reshape(bsz, s, nh, ph)
+    if cache is None:
+        y, _ = ssd_chunked(xh, dt, p["a_log"], bb, cc)
+        new_cache = None
+    else:
+        y, h_fin = ssd_decode(xh, dt, p["a_log"], bb, cc, cache[1])
+        new_cache = (conv_state_new, h_fin)
+    y = y + xh.float().to(y.dtype) * \
+        p["d_skip"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(bsz, s, din)
+    if gated and "in_z" in p:
+        z = torch.einsum("bsd,de->bse", x, p["in_z"].to(x.dtype))
+        y = y * torch.nn.functional.silu(z.float()).to(y.dtype)
+    return torch.einsum("bse,ed->bsd", y, p["out"].to(y.dtype)), new_cache
+
+
+def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                cache: Optional[Tuple] = None):
+    y = rmsnorm(x, p["ln"], cfg.norm_eps)
+    o, new_cache = mamba2_mix(cfg, p, y, cache)
+    return x + o, new_cache

@@ -1,15 +1,17 @@
 """The architecture zoo: one parameter-tree function + forward per family.
 
-The counterpart of the JAX package's ``repro.models.zoo``.  This slice
-ports the dense family (llama/qwen GQA); the moe, ssm, hybrid, vlm and
-audio families raise ``NotImplementedError`` (``ROADMAP.md`` §1, item 7,
-"LM, the other families").
+The counterpart of the JAX package's ``repro.models.zoo``, for all six
+families: dense (llama/qwen GQA), moe (qwen2-moe / moonlight), ssm
+(mamba2 SSD), hybrid (hymba: parallel attn+SSM heads, sliding window),
+vlm (llama-3.2-vision: a gated cross-attn block in every group of
+layers) and audio (whisper enc-dec; the conv/mel frontend is stubbed as
+precomputed frame embeddings).
 
 Everything is a pure function over nested dict params.  Layer leaves are
 stacked (L, ...) as in the JAX package, so parameters convert one to one;
 the JAX package's ``lax.scan`` over the stack is a Python loop here, and
 its ``jax.checkpoint`` of the layer body (``cfg.remat``) is
-``torch.utils.checkpoint`` of each layer when a gradient is taken.
+``torch.utils.checkpoint`` of the same body when a gradient is taken.
 """
 from __future__ import annotations
 
@@ -19,16 +21,20 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .common import attn_block, cdt, current_route, rmsnorm, swiglu
+from .common import (attn_block, cdt, cross_attn_block, current_route,
+                     rmsnorm, swiglu)
 from .config import ModelConfig
+from .moe import moe_block
 from .params import Leaf
-
-_LATER = ("the {} family is not ported yet (ROADMAP.md §1, item 7, 'LM, "
-          "the other families'); the port's LM stack has the dense family")
+from .ssm import mamba2_mix, mamba_block
 
 
-def _attn_tree(cfg: ModelConfig, leaf: Leaf, pre: str,
-               lead: tuple = ()) -> Dict[str, Any]:
+# ---------------------------------------------------------------------------
+# parameter trees
+# ---------------------------------------------------------------------------
+
+def _attn_tree(cfg: ModelConfig, leaf: Leaf, pre: str, ln_kv: bool = False,
+               gate: bool = False, lead: tuple = ()) -> Dict[str, Any]:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
     sc = 0.02
     t = {
@@ -42,6 +48,10 @@ def _attn_tree(cfg: ModelConfig, leaf: Leaf, pre: str,
         t["bq"] = leaf(pre + ".bq", lead + (h, hd), None, 0.0)
         t["bk"] = leaf(pre + ".bk", lead + (kv, hd), None, 0.0)
         t["bv"] = leaf(pre + ".bv", lead + (kv, hd), None, 0.0)
+    if ln_kv:
+        t["ln_kv"] = leaf(pre + ".ln_kv", lead + (d,), None, 1.0)
+    if gate:
+        t["gate"] = leaf(pre + ".gate", lead + (1,), None, 0.0)
     return t
 
 
@@ -55,9 +65,48 @@ def _mlp_tree(cfg: ModelConfig, leaf: Leaf, pre: str, lead: tuple = ()):
     }
 
 
+def _moe_tree(cfg: ModelConfig, leaf: Leaf, pre: str, lead: tuple = ()):
+    d, e, f = cfg.d_model, cfg.moe_experts, cfg.moe_d_ff
+    t = {
+        "ln": leaf(pre + ".ln", lead + (d,), None, 1.0),
+        "router": leaf(pre + ".router", lead + (d, e), None, 0.02),
+        "w1": leaf(pre + ".w1", lead + (e, d, f), None, 0.02),
+        "w3": leaf(pre + ".w3", lead + (e, d, f), None, 0.02),
+        "w2": leaf(pre + ".w2", lead + (e, f, d), None, 0.02),
+    }
+    if cfg.moe_shared:
+        fs = cfg.moe_shared * f
+        t["w1s"] = leaf(pre + ".w1s", lead + (d, fs), None, 0.02)
+        t["w3s"] = leaf(pre + ".w3s", lead + (d, fs), None, 0.02)
+        t["w2s"] = leaf(pre + ".w2s", lead + (fs, d), None, 0.02)
+    return t
+
+
+def _mamba_tree(cfg: ModelConfig, leaf: Leaf, pre: str, lead: tuple = (),
+                gated: bool = True):
+    d, din, ns = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh = cfg.n_ssm_heads
+    k = cfg.conv_width
+    convd = din + 2 * ns
+    t = {
+        "ln": leaf(pre + ".ln", lead + (d,), None, 1.0),
+        "in_x": leaf(pre + ".in_x", lead + (d, din), None, 0.02),
+        "in_b": leaf(pre + ".in_b", lead + (d, ns), None, 0.02),
+        "in_c": leaf(pre + ".in_c", lead + (d, ns), None, 0.02),
+        "in_dt": leaf(pre + ".in_dt", lead + (d, nh), None, 0.02),
+        "conv_w": leaf(pre + ".conv_w", lead + (k, convd), None, 0.1),
+        "conv_b": leaf(pre + ".conv_b", lead + (convd,), None, 0.0),
+        "a_log": leaf(pre + ".a_log", lead + (nh,), None, 0.5),
+        "d_skip": leaf(pre + ".d_skip", lead + (nh,), None, 1.0),
+        "dt_bias": leaf(pre + ".dt_bias", lead + (nh,), None, 0.5),
+        "out": leaf(pre + ".out", lead + (din, d), None, 0.02),
+    }
+    if gated:
+        t["in_z"] = leaf(pre + ".in_z", lead + (d, din), None, 0.02)
+    return t
+
+
 def param_tree(cfg: ModelConfig, leaf: Leaf) -> Dict[str, Any]:
-    if cfg.family != "dense":
-        raise NotImplementedError(_LATER.format(cfg.family))
     d, v = cfg.d_model, cfg.vocab
     t: Dict[str, Any] = {
         "embed": leaf("embed", (v, d), None, 0.02),
@@ -66,21 +115,106 @@ def param_tree(cfg: ModelConfig, leaf: Leaf) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         t["head"] = leaf("head", (d, v), None, 0.02)
     L = (cfg.n_layers,)
-    t["layers"] = {"attn": _attn_tree(cfg, leaf, "L.attn", lead=L),
-                   "mlp": _mlp_tree(cfg, leaf, "L.mlp", lead=L)}
+
+    if cfg.family == "dense":
+        t["layers"] = {"attn": _attn_tree(cfg, leaf, "L.attn", lead=L),
+                       "mlp": _mlp_tree(cfg, leaf, "L.mlp", lead=L)}
+    elif cfg.family == "moe":
+        t["layers"] = {"attn": _attn_tree(cfg, leaf, "L.attn", lead=L),
+                       "moe": _moe_tree(cfg, leaf, "L.moe", lead=L)}
+    elif cfg.family == "ssm":
+        t["layers"] = {"mamba": _mamba_tree(cfg, leaf, "L.mamba", lead=L)}
+    elif cfg.family == "hybrid":
+        t["layers"] = {
+            "attn": _attn_tree(cfg, leaf, "L.attn", lead=L),
+            "mamba": _mamba_tree(cfg, leaf, "L.mamba", lead=L, gated=False),
+            "mix_a": leaf("L.mix_a", L + (d,), None, 1.0),
+            "mix_s": leaf("L.mix_s", L + (d,), None, 1.0),
+            "mlp": _mlp_tree(cfg, leaf, "L.mlp", lead=L),
+        }
+    elif cfg.family == "vlm":
+        g = cfg.n_layers // cfg.cross_attn_interval
+        inner = (g, cfg.cross_attn_interval - 1)
+        t["layers"] = {"attn": _attn_tree(cfg, leaf, "L.attn", lead=inner),
+                       "mlp": _mlp_tree(cfg, leaf, "L.mlp", lead=inner)}
+        t["xlayers"] = {"xattn": _attn_tree(cfg, leaf, "X.attn", ln_kv=True,
+                                            gate=True, lead=(g,)),
+                        "mlp": _mlp_tree(cfg, leaf, "X.mlp", lead=(g,)),
+                        "gate_mlp": leaf("X.gate_mlp", (g, 1), None, 0.0)}
+    elif cfg.family == "audio":
+        eL = (cfg.encoder_layers,)
+        t["enc_pos"] = leaf("enc_pos", (cfg.n_audio_frames, d), None, 0.02)
+        t["enc_layers"] = {"attn": _attn_tree(cfg, leaf, "E.attn", lead=eL),
+                           "mlp": _mlp_tree(cfg, leaf, "E.mlp", lead=eL)}
+        t["enc_ln_f"] = leaf("enc_ln_f", (d,), None, 1.0)
+        t["dec_pos"] = leaf("dec_pos", (cfg.max_seq, d), None, 0.02)
+        t["layers"] = {"attn": _attn_tree(cfg, leaf, "D.attn", lead=L),
+                       "xattn": _attn_tree(cfg, leaf, "D.xattn", ln_kv=True,
+                                           lead=L),
+                       "mlp": _mlp_tree(cfg, leaf, "D.mlp", lead=L)}
+    else:
+        raise ValueError(cfg.family)
     return t
 
 
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
 def cache_tree(cfg: ModelConfig, leaf, batch_size: int, cache_len: int):
     """Decode-cache tree via the leaf callback ``leaf(name, shape, spec,
-    scale)``."""
-    if cfg.family != "dense":
-        raise NotImplementedError(_LATER.format(cfg.family))
+    scale)``.  The hybrid family's cache holds one (k, v, conv, h) tuple
+    a layer: window layers keep ``min(window, cache_len)`` rows, global
+    layers ``cache_len``."""
     L, kv, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim
-    return {"k": leaf("ck", (L, batch_size, cache_len, kv, hd), None, 0.0),
-            "v": leaf("cv", (L, batch_size, cache_len, kv, hd), None, 0.0),
-            "idx": leaf("idx", (), None, 0.0)}
+    fam = cfg.family
+    mk = lambda name, shape: leaf(name, shape, None, 0.0)   # noqa: E731
+    idx = leaf("idx", (), None, 0.0)
+    if fam in ("dense", "moe"):
+        return {"k": mk("ck", (L, batch_size, cache_len, kv, hd)),
+                "v": mk("cv", (L, batch_size, cache_len, kv, hd)),
+                "idx": idx}
+    if fam == "ssm":
+        convd = cfg.d_inner + 2 * cfg.ssm_state
+        return {"conv": mk("conv", (L, batch_size, cfg.conv_width - 1,
+                                    convd)),
+                "h": mk("h", (L, batch_size, cfg.n_ssm_heads,
+                              cfg.ssm_d_head, cfg.ssm_state)),
+                "idx": idx}
+    if fam == "hybrid":
+        convd = cfg.d_inner + 2 * cfg.ssm_state
+        layers = []
+        for l in range(L):
+            t = cache_len if l in cfg.global_layers else min(cfg.window,
+                                                             cache_len)
+            layers.append((
+                mk(f"ck{l}", (batch_size, t, kv, hd)),
+                mk(f"cv{l}", (batch_size, t, kv, hd)),
+                mk(f"conv{l}", (batch_size, cfg.conv_width - 1, convd)),
+                mk(f"h{l}", (batch_size, cfg.n_ssm_heads, cfg.ssm_d_head,
+                             cfg.ssm_state)),
+            ))
+        return {"layers": tuple(layers), "idx": idx}
+    if fam == "vlm":
+        g = cfg.n_layers // cfg.cross_attn_interval
+        k_inner = cfg.cross_attn_interval - 1
+        return {"k": mk("ck", (g, k_inner, batch_size, cache_len, kv, hd)),
+                "v": mk("cv", (g, k_inner, batch_size, cache_len, kv, hd)),
+                "img": mk("img", (batch_size, cfg.n_img_tokens,
+                                  cfg.d_model)),
+                "idx": idx}
+    if fam == "audio":
+        return {"k": mk("ck", (L, batch_size, cache_len, kv, hd)),
+                "v": mk("cv", (L, batch_size, cache_len, kv, hd)),
+                "enc": mk("enc", (batch_size, cfg.n_audio_frames,
+                                  cfg.d_model)),
+                "idx": idx}
+    raise ValueError(fam)
 
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
 
 def _embed(cfg: ModelConfig, params, tokens):
     # gather, then cast: the same values as casting the table first; the
@@ -99,6 +233,36 @@ def _dense_layer(cfg, pl_, x, pos, cache, window=0):
     x, cache = attn_block(cfg, pl_["attn"], x, pos, cache, window=window)
     x = swiglu(cfg, pl_["mlp"], x)
     return x, cache
+
+
+def _moe_layer(cfg, pl_, x, pos, cache):
+    x, cache = attn_block(cfg, pl_["attn"], x, pos, cache)
+    x = moe_block(cfg, pl_["moe"], x)
+    return x, cache
+
+
+def _hybrid_layer(cfg, pl_, x, pos, cache, is_global):
+    """Hymba: attention heads and SSM heads in parallel on the same input.
+    ``cache`` is ((k, v, idx), (conv, h)) or None."""
+    window = 0 if is_global else cfg.window
+    y = rmsnorm(x, pl_["attn"]["ln"], cfg.norm_eps)
+    # attention branch (shares pl_["attn"] projections; no inner
+    # residual): its output is taken back off the residual, in the
+    # compute dtype
+    res, attn_cache = attn_block(
+        cfg, pl_["attn"], x, pos,
+        None if cache is None else cache[0], window=window)
+    o_attn = res - x
+    # SSM branch on the same normalized input
+    o_ssm, ssm_cache = mamba2_mix(cfg, pl_["mamba"], y,
+                                  None if cache is None else cache[1],
+                                  gated=False)
+    mixed = 0.5 * (o_attn * pl_["mix_a"].to(x.dtype)
+                   + o_ssm * pl_["mix_s"].to(x.dtype))
+    x = x + mixed
+    x = swiglu(cfg, pl_["mlp"], x)
+    new_cache = None if cache is None else (attn_cache, ssm_cache)
+    return x, new_cache
 
 
 def _layers(tree, n: int):
@@ -120,11 +284,41 @@ def _recompute_as_now():
     return contextlib.nullcontext(), current_route()
 
 
+def _body(fn, x, remat: bool):
+    """``fn(x)``; with ``remat``, keeping only its input for the backward,
+    which recomputes the rest (the JAX package's ``jax.checkpoint`` of a
+    layer body)."""
+    if not remat:
+        return fn(x)
+    return checkpoint(fn, x, use_reentrant=False,
+                      context_fn=_recompute_as_now)
+
+
+def _encode_audio(cfg: ModelConfig, params, frames, remat: bool = False):
+    """Whisper encoder over precomputed (stub) frame embeddings."""
+    b, t, _ = frames.shape
+    dt = cdt(cfg)
+    x = frames.to(dt) + params["enc_pos"][:t].to(dt)[None]
+    pos = torch.arange(t, dtype=torch.int32,
+                       device=frames.device)[None].expand(b, t)
+
+    def ebody(xx, pl_):
+        xx, _ = attn_block(cfg, pl_["attn"], xx, pos, None, causal=False,
+                           rope_on=False)
+        return swiglu(cfg, pl_["mlp"], xx)
+
+    for pl_ in _layers(params["enc_layers"], cfg.encoder_layers):
+        x = _body(lambda xx, pp=pl_: ebody(xx, pp), x, remat)
+    return rmsnorm(x, params["enc_ln_f"], cfg.norm_eps)
+
+
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             cache: Optional[Dict] = None):
-    """Returns (logits, new_cache).  Train/prefill when cache is None."""
-    if cfg.family != "dense":
-        raise NotImplementedError(_LATER.format(cfg.family))
+    """Returns (logits, new_cache).  Train/prefill when cache is None.
+
+    Decode caches are not written in place: the new one is returned.  An
+    SSM state leaves a decode step in float32 whatever dtype it came in
+    with, as in the JAX package."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
@@ -138,22 +332,114 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         pos = (idx + ar).expand(b, s)
 
     # remat as the JAX package's jax.checkpoint of the layer body: each
-    # layer keeps only its input and recomputes the rest in the backward
+    # layer (a vlm group) keeps only its input and recomputes the rest in
+    # the backward
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
-    ks, vs = [], []
-    for l, pl_ in enumerate(_layers(params["layers"], cfg.n_layers)):
-        if remat:
-            x = checkpoint(lambda xx, pp=pl_: _dense_layer(
-                cfg, pp, xx, pos, None)[0], x, use_reentrant=False,
-                context_fn=_recompute_as_now)
-            continue
-        c_l = None if cache is None else (cache["k"][l], cache["v"][l], idx)
-        x, c_out = _dense_layer(cfg, pl_, x, pos, c_l)
+    fam = cfg.family
+    L = cfg.n_layers
+    new_cache = None
+
+    if fam in ("dense", "moe", "ssm"):
+        def layer(xx, pl_, c_l):
+            if fam == "dense":
+                return _dense_layer(cfg, pl_, xx, pos, c_l)
+            if fam == "moe":
+                return _moe_layer(cfg, pl_, xx, pos, c_l)
+            return mamba_block(cfg, pl_["mamba"], xx, c_l)
+
+        outs = []
+        for l, pl_ in enumerate(_layers(params["layers"], L)):
+            if cache is None:
+                x = _body(lambda xx, pp=pl_: layer(xx, pp, None)[0], x,
+                          remat)
+                continue
+            c_l = (cache["conv"][l], cache["h"][l]) if fam == "ssm" \
+                else (cache["k"][l], cache["v"][l], idx)
+            x, c_out = layer(x, pl_, c_l)
+            outs.append(c_out)
         if cache is not None:
-            ks.append(c_out[0])
-            vs.append(c_out[1])
-    new_cache = None if cache is None else \
-        {"k": torch.stack(ks), "v": torch.stack(vs), "idx": idx + s}
+            names = ("conv", "h") if fam == "ssm" else ("k", "v")
+            new_cache = {n: torch.stack([o[i] for o in outs])
+                         for i, n in enumerate(names)}
+            new_cache["idx"] = idx + s
+
+    elif fam == "hybrid":
+        layer_caches = []
+        for l, pl_ in enumerate(_layers(params["layers"], L)):
+            is_global = l in cfg.global_layers
+            if cache is None:
+                x = _body(lambda xx, pp=pl_, gl=is_global: _hybrid_layer(
+                    cfg, pp, xx, pos, None, gl)[0], x, remat)
+                continue
+            kc, vc, conv_s, h_s = cache["layers"][l]
+            x, ((kc, vc, _), (conv_s, h_s)) = _hybrid_layer(
+                cfg, pl_, x, pos, ((kc, vc, idx), (conv_s, h_s)), is_global)
+            layer_caches.append((kc, vc, conv_s, h_s))
+        if cache is not None:
+            new_cache = {"layers": tuple(layer_caches), "idx": idx + s}
+
+    elif fam == "vlm":
+        img = batch["img"] if cache is None else cache["img"]
+        g = cfg.n_layers // cfg.cross_attn_interval
+        k_inner = cfg.cross_attn_interval - 1
+
+        def group(xx, gi, pl_, px_):
+            """One group = (interval-1) self layers with a gated
+            cross-attn block (xattn + gated FFN, llama-3.2-vision style)
+            before the last self layer.  Returns (x, [(k, v) a layer])."""
+            kv_out = []
+            for j, pj in enumerate(_layers(pl_, k_inner)):
+                cj = None if cache is None else \
+                    (cache["k"][gi, j], cache["v"][gi, j], idx)
+                if j == k_inner - 1:   # cross-attn before the last layer
+                    xx = cross_attn_block(cfg, px_["xattn"], xx, img)
+                    gate = torch.tanh(px_["gate_mlp"].float()).to(xx.dtype)
+                    xx = xx + gate * (swiglu(cfg, px_["mlp"], xx) - xx)
+                xx, cj_out = _dense_layer(cfg, pj, xx, pos, cj)
+                if cache is not None:
+                    kv_out.append(cj_out)
+            return xx, kv_out
+
+        ks, vs = [], []
+        for gi, (pl_, px_) in enumerate(zip(_layers(params["layers"], g),
+                                            _layers(params["xlayers"], g))):
+            if cache is None:
+                x = _body(lambda xx, gg=gi, pp=pl_, qq=px_:
+                          group(xx, gg, pp, qq)[0], x, remat)
+                continue
+            x, kv_out = group(x, gi, pl_, px_)
+            ks.append(torch.stack([o[0] for o in kv_out]))
+            vs.append(torch.stack([o[1] for o in kv_out]))
+        if cache is not None:
+            new_cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                         "img": img, "idx": idx + s}
+
+    elif fam == "audio":
+        enc = _encode_audio(cfg, params, batch["frames"], remat) \
+            if cache is None else cache["enc"]
+        # gather, then cast: the same values as casting the table first
+        x = x + params["dec_pos"][pos.long()].to(x.dtype)
+
+        def dlayer(xx, pl_, c_l):
+            xx, c_out = attn_block(cfg, pl_["attn"], xx, pos, c_l,
+                                   rope_on=False)
+            xx = cross_attn_block(cfg, pl_["xattn"], xx, enc, gated=False)
+            return swiglu(cfg, pl_["mlp"], xx), c_out
+
+        outs = []
+        for l, pl_ in enumerate(_layers(params["layers"], L)):
+            if cache is None:
+                x = _body(lambda xx, pp=pl_: dlayer(xx, pp, None)[0], x,
+                          remat)
+                continue
+            x, c_out = dlayer(x, pl_, (cache["k"][l], cache["v"][l], idx))
+            outs.append(c_out)
+        if cache is not None:
+            new_cache = {"k": torch.stack([o[0] for o in outs]),
+                         "v": torch.stack([o[1] for o in outs]),
+                         "enc": enc, "idx": idx + s}
+    else:
+        raise ValueError(fam)
 
     logits = _unembed(cfg, params, x)
     return logits, new_cache

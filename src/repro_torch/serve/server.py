@@ -8,7 +8,10 @@ dimension of one shared cache with one shared write index; finished
 requests free their slot for the next queued prompt (continuous
 batching).  Greedy decoding takes ``np.argmax`` of the host float32
 logits (the first index on ties); sampling at a temperature draws from a
-numpy ``default_rng(seed)``.
+numpy ``default_rng(seed)``.  Any family of the registry is served: the
+cache is ``api.init_cache``'s, so a vlm server's image embeddings
+(``img``) and an audio server's encoder output (``enc``) stay at zero,
+as the JAX package's ``Server`` leaves them.
 """
 from __future__ import annotations
 

@@ -361,3 +361,44 @@ def test_gloo_cannot_send_cuda_tensors(cuda, tmp_path):
         rdist.spawn(gloo_send_a_cuda_tensor, 2, device="cuda:0",
                     backend="gloo", init_method=f"file://{tmp_path}/store",
                     timeout_s=120)
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("qwen2-moe-a2.7b", dict(d_model=128, n_heads=2, n_kv_heads=2)),
+    ("mamba2-130m", {}),
+    ("hymba-1.5b", dict(n_heads=2, n_kv_heads=1, d_head=64)),
+    ("llama-3.2-vision-11b", dict(d_model=128, n_heads=2, n_kv_heads=1)),
+    ("whisper-small", dict(d_model=128, n_heads=2, n_kv_heads=2))])
+def test_lm_families_on_the_card_equal_the_cpu_run(cuda, arch, kw):
+    """Each of the other families, reduced with head_dim 64 (a K2 shape),
+    float32 compute: the S = 128 forward (the kernel route where the
+    layer takes it) and 12 decode steps on the card against the CPU,
+    within 1e-4 on logits, with the CPU's cache dtypes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.reduced(arch),
+                              compute_dtype="float32", **kw)
+    params = api.init_params(cfg, 0, device="cpu")
+    on_card = convert.params_from_numpy(convert.params_to_numpy(params),
+                                        cuda, cfg)
+    batch = api.make_inputs(cfg, "prefill", 2, 128,
+                            np.random.default_rng(1), device="cpu")
+    want, _ = api.forward_logits(cfg, params, batch, device="cpu")
+    got, _ = api.forward_logits(cfg, on_card, batch)
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+    c_cpu = api.init_cache(cfg, 2, 32, device="cpu")
+    c_card = api.init_cache(cfg, 2, 32)
+    for t in range(12):
+        tok = batch["tokens"][:, t:t + 1]
+        lw, c_cpu = api.decode_step(cfg, params, c_cpu, tok, device="cpu")
+        lg, c_card = api.decode_step(cfg, on_card, c_card, tok)
+        assert float((lg.cpu() - lw).abs().max()) < 1e-4, t
+    assert _dtypes(c_card) == _dtypes(c_cpu)
+
+
+def _dtypes(tree):
+    """The dtypes of a cache's leaves (dicts and tuples), in order."""
+    if isinstance(tree, dict):
+        tree = tuple(tree.values())
+    if isinstance(tree, tuple):
+        return [d for v in tree for d in _dtypes(v)]
+    return [tree.dtype]

@@ -46,6 +46,7 @@ def test_port_imports_no_jax_and_no_repro():
         "repro_torch.launch.simulate, repro_torch.kernels.flash_attention, "
         "repro_torch.models.config, repro_torch.models.params, "
         "repro_torch.models.common, repro_torch.models.zoo, "
+        "repro_torch.models.moe, repro_torch.models.ssm, "
         "repro_torch.models.api, repro_torch.configs.registry, "
         "repro_torch.serve.server, repro_torch.launch.serve, "
         "repro_torch.train.step, repro_torch.core.sweep, "

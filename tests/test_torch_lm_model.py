@@ -33,6 +33,8 @@ from repro_torch.configs import registry
 from repro_torch.models import api, common
 from repro_torch.train import step
 
+import torch_lm_parity as par
+
 torch.set_num_threads(1)
 
 F32_TOL = 1e-4
@@ -213,9 +215,74 @@ def test_decode_past_cache_len_clamps_the_write_as_jax():
     assert int(tc["idx"]) == 12
 
 
-def test_other_families_are_later_slices():
-    cfg = registry.reduced("mamba2-130m")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        api.init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        api.init_cache(cfg, 1, 8, "cpu")
+FAMILIES = {"dense": "tinyllama-1.1b", "moe": "qwen2-moe-a2.7b",
+            "ssm": "mamba2-130m", "hybrid": "hymba-1.5b",
+            "vlm": "llama-3.2-vision-11b", "audio": "whisper-small"}
+
+
+def _shapes(tree):
+    """{path: (shape, dtype name)} of a tree of mappings and tuples."""
+    return {p: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            for p, t in par.leaves(tree)}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_every_family_has_jax_trees_and_round_trips(family):
+    """Every family the registry names: the port's abstract parameters
+    and decode cache have ``repro``'s keys, shapes and dtypes, and
+    ``params_from_numpy`` carries ``repro``'s parameters across and back
+    bit for bit."""
+    arch = FAMILIES[family]
+    cfg_j, cfg_t = jregistry.reduced(arch), registry.reduced(arch)
+    assert cfg_t.family == family
+    assert _shapes(api.abstract_params(cfg_t)) == _shapes(
+        japi.abstract_params(cfg_j))
+    assert _shapes(api.init_cache(cfg_t, 3, 40, "meta")) == _shapes(
+        japi.init_cache(cfg_j, 3, 40)) == _shapes(
+        api.init_cache(cfg_t, 3, 40, "cpu"))
+    pj = jax.tree.map(np.asarray, japi.init_params(cfg_j,
+                                                   jax.random.key(2)))
+    pt = convert.params_from_numpy(pj, "cpu", cfg_t)
+    back = convert.params_to_numpy(pt)
+    for p, a in leaves(pj):
+        got = functools.reduce(lambda t, k: t[k], p, back)
+        assert got.dtype == a.dtype and np.array_equal(got, a), p
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_caches_round_trip_for_every_family(family):
+    """A bfloat16 cache after one decode step (an SSM state is float32
+    then, as in ``repro``) leaves the port and comes back bit for bit;
+    batch and cache length are read from the family's own leaves; a leaf
+    of the wrong shape is an error."""
+    cfg = dataclasses.replace(registry.reduced(FAMILIES[family]),
+                              compute_dtype="bfloat16")
+    params = api.init_params(cfg, 3, "cpu")
+    cache = api.init_cache(cfg, 3, 40, "cpu")
+    for k in ("img", "enc"):
+        if k in cache:
+            cache[k] = torch.randn(cache[k].shape).to(torch.bfloat16)
+    _, cache = api.decode_step(cfg, params, cache,
+                               np.full((3, 1), 5, np.int32), device="cpu")
+    out = convert.cache_to_numpy(cache)
+    back = convert.cache_from_numpy(out, "cpu", cfg)
+    want, got = _shapes(cache), _shapes(back)
+    assert got == want
+    if family in ("ssm", "hybrid"):
+        assert {d for p, (_, d) in want.items()
+                if p[-1] in ("h", 3)} == {"float32"}
+    for (p, a), (q, b) in zip(par.leaves(cache), par.leaves(back)):
+        assert p == q and torch.equal(a, b), p
+    # the leaf dtypes are repro's: its bf16 leaves arrive as ml_dtypes
+    jc = japi.init_cache(dataclasses.replace(
+        jregistry.reduced(FAMILIES[family]), compute_dtype="bfloat16"), 3, 40)
+    came = convert.cache_from_numpy(jax.tree.map(np.asarray, jc), "cpu", cfg)
+    assert _shapes(came) == _shapes(api.init_cache(cfg, 3, 40, "meta"))
+    bad = dict(out)
+    key = "layers" if family == "hybrid" else next(
+        k for k in out if k != "idx")
+    bad[key] = np.zeros(1, np.float32) if family != "hybrid" else \
+        out[key][:-1]
+    with pytest.raises(ValueError):
+        convert.cache_from_numpy(bad, "cpu", cfg)
+

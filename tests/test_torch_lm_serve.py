@@ -11,6 +11,7 @@ tokens as ``repro.serve.server.Server``: argmax of logits that agree to
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -79,3 +80,14 @@ def test_serve_launcher_on_the_cpu(capsys):
     line = capsys.readouterr().out.strip()
     assert line.startswith("served 3 requests / 12 tokens in ")
     assert line.endswith("with 4 slots on cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-130m",
+                                  "hymba-1.5b", "llama-3.2-vision-11b",
+                                  "whisper-small"])
+def test_serve_launcher_serves_every_family_on_the_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--reduced", "--requests", "3",
+                "--max-new", "4", "--slots", "2", "--device", "cpu"])
+    line = capsys.readouterr().out.strip()
+    assert line.startswith("served 3 requests / 12 tokens in ")
+    assert line.endswith("with 2 slots on cpu")
