@@ -129,11 +129,28 @@ caught:
    at a capacity that drops nothing; (d) the ``Server`` at the
    launcher's defaults.  K2 is also timed at their D-128 prefill shapes
    in phase 4.
+11b. lm-sharded — after lm-train: tinyllama-1.1b at full width on a
+   (2, 2) ("data", "model") device mesh of four gloo ranks sharing
+   cuda:0 (DTensor; its collectives staged through host copies, since
+   gloo's functional collectives of CUDA tensors kill the rank), ranks
+   ``spawn``ed as subprocesses: (1) the B=4 S=2048 bf16 prefill, K2 on
+   each rank's 16 local heads (22 launches a rank), the last-token
+   logits against the one-device prefill (ROUTE_MAX/ROUTE_MEAN), and in
+   a second prefill each K2 call against ``attention_ref`` on its
+   rank's own inputs (5e-2); (2)
+   one float32 train step at B=8 S=256, its loss, grad norm and every
+   gathered gradient against the one-device step (the lm-train
+   tolerances); (3) the step's parameters saved on (2, 2), restored on
+   (1, 4) and on one rank, every leaf equal bit for bit, and the next
+   step's loss and grad norm on (1, 4) against one rank's.  Prints ms a
+   prefill and a step per rank: ranks time-sharing one card, not a
+   scaling result.
 
 The two lines before the last are the card (as ``nvidia-smi`` gives it)
 and one JSON object with the three kernels' numbers (K1 alone, the fused
 Phase-2 kernel, K2; the fused kernel's launches count every rank of
-the sharded phase, K2's every family's prefill); the last line is
+the sharded phase, K2's every family's prefill and every rank's sharded
+prefill, also listed by rank); the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU it exits non-zero and
 prints no result.
 """
@@ -299,6 +316,15 @@ SHARDED_SOLO, SHARDED_SPLIT, SHARDED_COMPOSED = (1, 1, 1), (1, 2, 2), \
 SHARDED_TILE_RANK = 3
 #: seconds each group of ranks may take
 SHARDED_TIMEOUT = 600
+
+#: lm-sharded: four gloo ranks sharing cuda:0 on a (2, 2) mesh over
+#: ("data", "model"); its checkpoint is restored on (1, 4) and on one rank
+SHLM_MESH, SHLM_REMESH, SHLM_RANKS = (2, 2), (1, 4), 4
+SHLM_AXES = ("data", "model")
+#: the float32 train step's batch
+SHLM_BATCH, SHLM_SEQ = 8, 256
+#: seconds the group of ranks may take
+SHLM_TIMEOUT = 900
 ZOO_FAMILY = "patterns-tiny"
 SERIAL_FLAGS = ["--rows", "4", "--cols", "4", "--app", "matmul", "--refs",
                 "12"]
@@ -1913,6 +1939,252 @@ def phase_lm_train(dev, cfg, params) -> None:
     _train_reduced(dev)
 
 
+def lm_sharded_rank(root: str) -> dict:
+    """One rank of lm-sharded, in a subprocess: tinyllama-1.1b at full
+    width on the (2, 2) mesh; (1) the bf16 prefill, (2) one float32 train
+    step against the one-device step on rank 0, (3) its parameters
+    checkpointed on (2, 2) and restored on (1, 4) and on one rank, and
+    the next step's loss and gradient norm on both.  Rank 0 prints its
+    progress."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import api
+    from repro_torch.parallel.sharding import P, NamedSharding, \
+        tree_shardings
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optim, step
+    from repro_torch.train.data import DataConfig, DataSource, DataState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    r = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sync = torch.cuda.synchronize
+    t_start = time.perf_counter()
+
+    def note(what):
+        if r == 0:
+            print(f"lm-sharded rank 0: {time.perf_counter() - t_start:.1f} "
+                  f"s: {what}; {torch.cuda.memory_allocated() / 2**30:.2f} "
+                  f"GiB held", flush=True)
+
+    def clock(fn):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def free():
+        sync()
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+    out = {"rank": r, "device": dev.index, "backend": dist.get_backend()}
+    cfg = registry.get(LM_ARCH)
+    mesh = make_mesh(SHLM_MESH, SHLM_AXES)
+    params, out["init_ms"] = clock(lambda: api.init_params(cfg, 0,
+                                                           mesh=mesh))
+    wq = params["layers"]["attn"]["wq"]
+    out["wq"] = (str(wq.placements), tuple(wq.to_local().shape))
+    note("parameters placed")
+
+    # (1) the prefill, bf16, K2 on each rank's local heads
+    batch = api.make_inputs(cfg, "prefill", PREFILL_BATCH, PREFILL_SEQ,
+                            np.random.default_rng(0))
+    prefill = step.make_prefill_step(cfg, mesh=mesh)
+    LAUNCHES.reset()
+    last, out["prefill_first_ms"] = clock(lambda: prefill(params, batch))
+    out["k2"] = LAUNCHES.n
+    _, out["prefill_ms"] = clock(lambda: prefill(params, batch))
+    with CheckedK2() as chk:            # K2 at this rank's local shapes
+        prefill(params, batch)
+    out["k2_checked"], out["k2_err"] = chk.calls, chk.err
+    last = last.full_tensor().float()
+    out["finite"] = bool(torch.isfinite(last).all())
+    note(f"prefill {out['prefill_ms']:.1f} ms")
+    if r == 0:
+        one = api.init_params(cfg, 0)
+        ref = step.make_prefill_step(cfg)(one, batch).float()
+        out["prefill_err"] = float((last - ref).abs().max())
+        out["prefill_mean"] = float((last - ref).abs().mean())
+        out["prefill_agree"] = float((last.argmax(-1) == ref.argmax(-1))
+                                     .float().mean())
+        del one, ref
+    free()
+
+    # (2) one float32 train step at the launcher's optimizer defaults
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    opt = train_cli.build_trainer(train_cli.build_parser().parse_args(
+        ["--arch", LM_ARCH])).ocfg
+    data = DataSource(DataConfig(batch=SHLM_BATCH, seq=SHLM_SEQ), cfg32)
+    b0, b1 = data.batch_at(DataState(0)), data.batch_at(DataState(1))
+
+    def train_step(p, o, b):
+        loss, grads = step.value_and_grad(cfg32, p, b, mesh=mesh)
+        p, o, gn = optim.apply_updates(opt, p, grads, o)
+        return loss, grads, p, o, gn
+
+    (loss, grads, p1, o1, gn), out["step_ms"] = clock(
+        lambda: train_step(params, optim.init_opt(opt, params), b0))
+    out["loss"], out["gnorm"] = float(loss), float(gn)
+    del params
+    note(f"train step {out['step_ms']:.1f} ms")
+    ref_g = {}
+    if r == 0:
+        one = api.init_params(cfg, 0)
+        ref_loss, g = step.value_and_grad(cfg32, one, b0)
+        out["ref_loss"] = float(ref_loss)
+        out["ref_gnorm"] = float(optim.global_norm(g))
+        ref_g = {k: v.cpu() for k, v in optim.tree_items(g)}
+        del one, g
+    free()
+    worst = 0.0
+    for k, g in optim.tree_items(grads):
+        full = g.full_tensor()
+        if r == 0:
+            ref = ref_g.pop(k)
+            worst = max(worst, float((full.cpu() - ref).abs().max()
+                                     / ref.abs().max()))
+        del full
+    out["grad_worst"] = worst
+    out["grad_leaves"] = sum(1 for _ in optim.tree_items(grads))
+    del grads
+    free()
+    note("gradients compared")
+
+    # (3) the step's parameters checkpointed on (2, 2), restored on
+    # (1, 4) and on one rank (rank 0); the optimizer state crosses
+    # meshes in the CPU tests (tests/test_torch_sharded_lm.py)
+    state = {"params": p1}
+    del o1
+    path, out["save_ms"] = clock(lambda: ckpt.save(root, 1, state))
+    note(f"saved in {out['save_ms'] / 1e3:.1f} s")
+    mesh14 = make_mesh(SHLM_REMESH, SHLM_AXES)
+    s14 = {"params": tree_shardings(api.param_pspecs(cfg), mesh14,
+                                    api.abstract_params(cfg))}
+    (st14, _), out["restore_ms"] = clock(lambda: ckpt.restore(path, state,
+                                                               s14))
+    st1 = None
+    if r == 0:
+        like = optim.tree_map(lambda t: torch.empty(0, dtype=t.dtype,
+                                                    device=dev),
+                              api.abstract_params(cfg))
+        st1, _ = ckpt.restore(path, {"params": like})
+    note(f"restored on {SHLM_REMESH} in {out['restore_ms'] / 1e3:.1f} s "
+         f"and on one rank")
+    n14 = n1 = 0
+    ones = {} if st1 is None else dict(ckpt._items(st1))
+    for (k, a), (_, b) in zip(ckpt._items(state), ckpt._items(st14)):
+        full = a.full_tensor()
+        n14 += bool(torch.equal(full, b.full_tensor()))
+        if k in ones:
+            n1 += bool(torch.equal(full, ones[k]))
+        del full
+    del ones
+    out["restored_equal"] = (n14, n1, sum(1 for _ in ckpt._items(state)))
+    del state
+    free()
+    # the next step's loss and gradient norm from the restored parameters
+    loss, g = step.value_and_grad(cfg32, st14["params"], b1, mesh=mesh14)
+    out["next14"] = (float(loss), float(optim.global_norm(g)))
+    del st14, g
+    if r == 0:
+        loss, g = step.value_and_grad(cfg32, st1["params"], b1)
+        out["next1"] = (float(loss), float(optim.global_norm(g)))
+        del st1, g
+    free()
+    note("next steps on (1, 4) and on one rank")
+    return out
+
+
+def phase_lm_sharded() -> list:
+    """lm-sharded: tinyllama-1.1b at full width over four gloo ranks
+    sharing cuda:0; returns K2's launches in the prefill, by rank."""
+    import tempfile
+    from repro_torch.dist import spawn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = spawn(lm_sharded_rank, SHLM_RANKS, (tmp,), device="cuda:0",
+                     backend="gloo", timeout_s=SHLM_TIMEOUT)
+        wall = time.perf_counter() - t0
+    o0 = outs[0]
+    for o in outs:
+        if o["backend"] != "gloo" or o["device"] != 0:
+            fail(f"lm-sharded: rank {o['rank']} ran {o['backend']} on "
+                 f"cuda:{o['device']}")
+        if o["k2"] != 22:
+            fail(f"lm-sharded: rank {o['rank']} launched K2 {o['k2']} "
+                 f"times in the prefill, expected 22 (one a layer)")
+        if o["k2_checked"] != 22 or not o["k2_err"] < K2_TOL["bfloat16"]:
+            fail(f"lm-sharded: rank {o['rank']}'s K2 against attention_ref "
+                 f"on the sharded prefill's own inputs: {o['k2_checked']} "
+                 f"calls, max |err| {o['k2_err']} (tolerance "
+                 f"{K2_TOL['bfloat16']})")
+        if not o["finite"]:
+            fail("lm-sharded: the sharded prefill's logits are not finite")
+    print(f"lm-sharded: {LM_ARCH} full width on a {SHLM_MESH} mesh over "
+          f"{SHLM_AXES}, {SHLM_RANKS} gloo ranks sharing cuda:0 (DTensor's "
+          f"collectives staged through host copies); wq on each rank "
+          f"{o0['wq'][1]}, placements {o0['wq'][0]}; K2 launches per rank "
+          f"{[o['k2'] for o in outs]}, each call against attention_ref on "
+          f"its rank's own inputs max |err| by rank "
+          f"{', '.join(format(o['k2_err'], '.3e') for o in outs)} (tolerance "
+          f"{K2_TOL['bfloat16']}); {wall:.1f} s with the ranks' start")
+    if not (o0["prefill_err"] <= ROUTE_MAX["bfloat16"]
+            and o0["prefill_mean"] <= ROUTE_MEAN["bfloat16"]):
+        fail(f"lm-sharded: sharded prefill vs one device max |err| "
+             f"{o0['prefill_err']}, mean {o0['prefill_mean']}")
+    print(f"lm-sharded (1): prefill B={PREFILL_BATCH} S={PREFILL_SEQ} bf16, "
+          f"last-token logits vs the one-device prefill: max |err| "
+          f"{o0['prefill_err']:.4e}, mean {o0['prefill_mean']:.4e} "
+          f"(tolerances {ROUTE_MAX['bfloat16']}, {ROUTE_MEAN['bfloat16']}), "
+          f"argmax agree {o0['prefill_agree']:.3f}; ms a prefill by rank "
+          f"{[round(o['prefill_ms'], 3) for o in outs]} (first call "
+          f"{[round(o['prefill_first_ms'], 1) for o in outs]}); card: "
+          f"{card_line()}")
+    rl = abs(o0["loss"] - o0["ref_loss"]) / abs(o0["ref_loss"])
+    rg = abs(o0["gnorm"] - o0["ref_gnorm"]) / o0["ref_gnorm"]
+    if not (rl <= TRAIN_LOSS_RTOL and rg <= TRAIN_GNORM_RTOL
+            and o0["grad_worst"] <= TRAIN_GRAD_RTOL):
+        fail(f"lm-sharded: float32 step, sharded loss {o0['loss']} grad "
+             f"norm {o0['gnorm']}, one device {o0['ref_loss']}, "
+             f"{o0['ref_gnorm']}, worst leaf {o0['grad_worst']}")
+    print(f"lm-sharded (2): one float32 train step B={SHLM_BATCH} "
+          f"S={SHLM_SEQ}: loss {o0['loss']!r} vs one device "
+          f"{o0['ref_loss']!r} (rel {rl:.3e}), grad norm {o0['gnorm']!r} vs "
+          f"{o0['ref_gnorm']!r} (rel {rg:.3e}), worst gathered leaf "
+          f"gradient max |diff| / max {o0['grad_worst']:.3e} over "
+          f"{o0['grad_leaves']} leaves (tolerances {TRAIN_LOSS_RTOL}, "
+          f"{TRAIN_GNORM_RTOL}, {TRAIN_GRAD_RTOL}); ms a step by rank "
+          f"{[round(o['step_ms'], 1) for o in outs]}; card: {card_line()}")
+    n14, n1, n = o0["restored_equal"]
+    if n14 != n or n1 != n:
+        fail(f"lm-sharded: of {n} restored leaves, {n14} equal the saved "
+             f"ones on {SHLM_REMESH}, {n1} on one rank")
+    (l14, g14), (l1, g1) = o0["next14"], o0["next1"]
+    if not (abs(l14 - l1) <= TRAIN_LOSS_RTOL * abs(l1)
+            and abs(g14 - g1) <= TRAIN_GNORM_RTOL * g1):
+        fail(f"lm-sharded: the next step's loss and grad norm on "
+             f"{SHLM_REMESH} {l14}, {g14} vs {l1}, {g1} on one rank")
+    print(f"lm-sharded (3): the step's parameters ({n} leaves) saved on "
+          f"{SHLM_MESH} in {o0['save_ms'] / 1e3:.1f} s, restored on "
+          f"{SHLM_REMESH} in {o0['restore_ms'] / 1e3:.1f} s and on one rank: "
+          f"every leaf equal bit for bit on both; the next step's loss "
+          f"{l14!r} and grad norm {g14!r} on {SHLM_REMESH} vs {l1!r}, "
+          f"{g1!r} on one rank (tolerances {TRAIN_LOSS_RTOL}, "
+          f"{TRAIN_GNORM_RTOL})")
+    return [o["k2"] for o in outs]
+
+
 #: payload keys that only the port prints, or that measure the host
 CLI_OWN_KEYS = ("wall_s", "scenarios_per_sec", "device",
                 "arbitration_kernel_launches")
@@ -2054,13 +2326,17 @@ def main() -> None:
     timed("lm-train", phase_lm_train, dev, cfg, params)
     del params
     torch.cuda.empty_cache()
+    sharded_k2 = timed("lm-sharded", phase_lm_sharded)
     family_launches = 0
     for name, arch, k2_want in LM_FAMILIES:
         family_launches += timed(name, phase_lm_family, dev, name, arch,
                                  k2_want)
     print(f"launches: flash_attention {rec_k2['launches']} (tinyllama "
-          f"prefill) + {family_launches} (the other families' prefills)")
-    rec_k2["launches"] += family_launches
+          f"prefill) + {sum(sharded_k2)} (the sharded prefill, by rank "
+          f"{sharded_k2}) + {family_launches} (the other families' "
+          f"prefills)")
+    rec_k2["launches"] += sum(sharded_k2) + family_launches
+    rec_k2["sharded_launches_per_rank"] = sharded_k2
 
     print(card)
     print(json.dumps({"kernels": [rec_k1, rec_p2, rec_k2]}))

@@ -22,7 +22,12 @@ with a message.  gloo can: several ranks may share one card over gloo,
 which is how the one-card machine checks a real multi-rank
 decomposition.  gloo's point-to-point operations read host memory, so
 the sharded backend stages its halo slabs through host tensors on that
-combination (``repro_torch.core.sharded``).
+combination (``repro_torch.core.sharded``).  DTensor's collectives (the
+functional collectives of ``torch.distributed._functional_collectives``)
+crash a gloo rank on CUDA tensors, all but ``all_reduce``, though the
+same collectives called directly run (torch 2.11 on the H100):
+:func:`stage_through_host` routes them through host copies, and
+``launch.mesh.make_mesh`` turns it on for a CUDA mesh over gloo.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ import torch.multiprocessing as mp
 from .device import resolve_device
 
 __all__ = ["init_rank", "spawn", "world_size", "rank", "check_devices",
-           "DEFAULT_TIMEOUT_S"]
+           "stage_through_host", "DEFAULT_TIMEOUT_S"]
 
 #: seconds a collective may wait for its peers before it fails
 DEFAULT_TIMEOUT_S = 600
@@ -230,3 +235,90 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (), *, device="cpu",
         if store_dir is not None:
             shutil.rmtree(store_dir, ignore_errors=True)
     return [got[r] for r in range(nprocs)]
+
+
+# ---------------------------------------------------------------------------
+# functional collectives through host copies
+# ---------------------------------------------------------------------------
+
+#: the ``torch.library`` registrations of :func:`stage_through_host`, by
+#: dispatch key
+_STAGED = {}
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM,
+               "product": dist.ReduceOp.PRODUCT, "min": dist.ReduceOp.MIN,
+               "max": dist.ReduceOp.MAX}
+
+
+def _group(name):
+    if isinstance(name, dist.ProcessGroup):
+        return name
+    return torch._C._distributed_c10d._resolve_process_group(name)
+
+
+def _reduce(op: str):
+    if op not in _REDUCE_OPS:
+        raise NotImplementedError(f"reduce op {op!r} is not staged")
+    return _REDUCE_OPS[op]
+
+
+def _avg(t: torch.Tensor, op: str, n: int) -> torch.Tensor:
+    return t / n if op == "avg" else t
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t`` that the collective may overwrite."""
+    return t.detach().to("cpu", copy=True).contiguous()
+
+
+def _staged_all_gather(inp, group_size, group_name):
+    h = _host(inp)
+    out = h.new_empty((group_size * h.shape[0],) + tuple(h.shape[1:]))
+    dist.all_gather_into_tensor(out, h, group=_group(group_name))
+    return out.to(inp.device)
+
+
+def _staged_reduce_scatter(inp, reduce_op, group_size, group_name):
+    h = _host(inp)
+    out = h.new_empty((h.shape[0] // group_size,) + tuple(h.shape[1:]))
+    dist.reduce_scatter_tensor(out, h, op=_reduce(reduce_op),
+                               group=_group(group_name))
+    return _avg(out, reduce_op, group_size).to(inp.device)
+
+
+def _staged_all_reduce(inp, reduce_op, group_name):
+    pg = _group(group_name)
+    h = _host(inp)
+    dist.all_reduce(h, op=_reduce(reduce_op), group=pg)
+    return _avg(h, reduce_op, pg.size()).to(inp.device)
+
+
+def _staged_all_to_all(inp, output_split_sizes, input_split_sizes,
+                       group_name):
+    h = _host(inp)
+    rows = sum(output_split_sizes) if output_split_sizes else h.shape[0]
+    out = h.new_empty((rows,) + tuple(h.shape[1:]))
+    dist.all_to_all_single(out, h, list(output_split_sizes) or None,
+                           list(input_split_sizes) or None,
+                           group=_group(group_name))
+    return out.to(inp.device)
+
+
+def stage_through_host(dispatch_key: str = "CUDA") -> None:
+    """Run the functional collectives that DTensor's redistributions call
+    (``_c10d_functional``: all-gather, reduce-scatter, all-reduce and
+    all-to-all of one tensor) through host copies for tensors of
+    ``dispatch_key``: each kernel copies its input to the host, runs the
+    collective there with ``torch.distributed``'s own call on the copy,
+    and copies the result back.  The result is ready when the kernel
+    returns, so the later ``wait_tensor`` finds nothing to wait for.
+    Idempotent; for this process only."""
+    if dispatch_key in _STAGED:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for op, fn in (("all_gather_into_tensor", _staged_all_gather),
+                   ("reduce_scatter_tensor", _staged_reduce_scatter),
+                   ("all_reduce", _staged_all_reduce),
+                   ("all_to_all_single", _staged_all_to_all)):
+        lib.impl(op, fn, dispatch_key)
+    _STAGED[dispatch_key] = lib

@@ -5,14 +5,19 @@
 
 The flags of the JAX package's ``repro.launch.train``, plus ``--device``:
 runs on the GPU unless ``--device cpu`` is given, and without a GPU the
-default fails rather than falling back to the CPU.  One device only:
-``--mesh single`` and ``--mesh multi`` raise ``NotImplementedError``
-(multi-GPU is ``ROADMAP.md`` §1, item 5).  Prints the JAX launcher's
-``[train] done: {...}`` line.
+default fails rather than falling back to the CPU.  ``--mesh single``
+and ``--mesh multi`` train over the production mesh (16x16, or 2x16x16
+with a ``pod`` axis) and so need 256 or 512 ranks under ``torchrun``
+(``--nproc-per-node``; each rank on ``cuda:$LOCAL_RANK`` over NCCL, or on
+the CPU over gloo with ``--device cpu``); with another world size they
+raise, naming the ranks they need.  Other meshes are reached through
+``Trainer(mesh=launch.mesh.make_mesh(...))``.  Prints the JAX
+launcher's ``[train] done: {...}`` line (rank 0 alone on a mesh).
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,10 +44,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_trainer(args: argparse.Namespace):
     """The ``Trainer`` that the launcher runs for parsed ``args``."""
+    device, mesh = args.device, None
     if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; meshes "
-            f"over several GPUs are ROADMAP.md §1, item 5 (multi-GPU)")
+        import torch.distributed as dist
+
+        from repro_torch import dist as rdist
+        from repro_torch.launch.mesh import make_production_mesh
+        if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+            device = rdist.init_rank(args.device)         # under torchrun
+        mesh = make_production_mesh(multi_pod=args.mesh == "multi",
+                                    device=device)
 
     from repro_torch.configs import registry
     from repro_torch.train.data import DataConfig
@@ -58,14 +69,16 @@ def build_trainer(args: argparse.Namespace):
         DataConfig(batch=args.batch, seq=args.seq),
         LoopConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                    ckpt_every=args.ckpt_every, resume=not args.no_resume),
-        device=args.device,
+        device=device, mesh=mesh,
     )
 
 
 def main(argv=None) -> None:
     """Launcher entry point; ``argv`` defaults to ``sys.argv[1:]``."""
-    out = build_trainer(build_parser().parse_args(argv)).run()
-    print(f"[train] done: {out}")
+    trainer = build_trainer(build_parser().parse_args(argv))
+    out = trainer.run()
+    if trainer.verbose:
+        print(f"[train] done: {out}")
 
 
 if __name__ == "__main__":

@@ -1,12 +1,19 @@
 """Public model API: parameters, caches, inputs, forward and decode.
 
-The counterpart of the JAX package's ``repro.models.api`` for serving:
+The counterpart of the JAX package's ``repro.models.api``:
 
-  abstract_params / init_params          (never drift: one tree fn)
-  init_cache / make_inputs
-  loss_fn(cfg, params, batch)            causal-LM cross entropy
-  forward_logits(cfg, params, batch)     cache-free forward (prefill)
-  decode_step(cfg, params, cache, tokens) one-token serve step
+  abstract_params / init_params / param_pspecs   (never drift: one tree fn)
+  init_cache / cache_pspecs
+  input_specs / input_pspecs / make_inputs
+  loss_fn(cfg, params, batch, mesh=None)         causal-LM cross entropy
+  forward_logits(cfg, params, batch, mesh=None)  cache-free forward (prefill)
+  decode_step(cfg, params, cache, tokens)        one-token serve step
+
+With a ``mesh`` (a ``DeviceMesh`` over ``("pod",) "data", "model"``
+axes), ``params`` are DTensors placed by ``param_pspecs`` (see
+:func:`repro_torch.parallel.sharding.distribute`) and every rank of the
+mesh makes the same call; the batch may be whole arrays, which each rank
+cuts to its own shard by ``input_pspecs``, or DTensors.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (or another device), and raise without a GPU: nothing falls back to the
@@ -23,9 +30,12 @@ import torch
 
 from repro_torch.device import resolve_device
 
+from repro_torch.parallel.sharding import (P, distribute, placements,
+                                           resolve_pspec)
+
 from .config import ModelConfig
-from .params import abstract_leaf, init_leaf
-from .zoo import cache_tree, forward, param_tree
+from .params import abstract_leaf, init_leaf, spec_leaf
+from .zoo import DP, cache_tree, forward, param_tree
 
 
 def _to(x, dev: torch.device, dtype=None) -> torch.Tensor:
@@ -47,11 +57,32 @@ def abstract_params(cfg: ModelConfig):
     return param_tree(cfg, abstract_leaf(getattr(torch, cfg.param_dtype)))
 
 
-def init_params(cfg: ModelConfig, seed: int, device=None):
-    """Random parameters from ``seed`` on ``device`` (default ``cuda``)."""
+def init_params(cfg: ModelConfig, seed: int, device=None, mesh=None):
+    """Random parameters from ``seed`` on ``device`` (default ``cuda``).
+    With a ``mesh``, each leaf is drawn whole on ``device``, as on one
+    device (the card's generator draws other numbers than the host's),
+    and each rank keeps its block of it (DTensors placed by
+    ``param_pspecs``)."""
     dev = resolve_device(device)
-    return param_tree(cfg, init_leaf(seed, getattr(torch, cfg.param_dtype),
-                                     dev))
+    init = init_leaf(seed, getattr(torch, cfg.param_dtype), dev)
+    if mesh is None:
+        return param_tree(cfg, init)
+
+    def leaf(name, shape, spec, scale):
+        spec = resolve_pspec(spec, mesh, shape)
+        return distribute(init(name, shape, spec, scale), mesh,
+                          placements(spec, mesh))
+    return param_tree(cfg, leaf)
+
+
+def param_pspecs(cfg: ModelConfig):
+    """The parameter tree's sharding specs (specs and ``Alt``s)."""
+    return param_tree(cfg, spec_leaf())
+
+
+def cache_pspecs(cfg: ModelConfig, batch: int = 1, cache_len: int = 128):
+    """The decode cache's sharding specs."""
+    return cache_tree(cfg, lambda n, s, spec, sc: spec, batch, cache_len)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
@@ -66,6 +97,42 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
     leaf = lambda name, shape, spec, sc: torch.zeros(
         shape, dtype=torch.int32 if name == "idx" else dt, device=dev)
     return cache_tree(cfg, leaf, batch, cache_len)
+
+
+def input_specs(cfg: ModelConfig, kind: str, global_batch: int,
+                seq_len: int) -> Dict[str, torch.Tensor]:
+    """Shape-only stand-ins (``meta`` tensors) for every model input of a
+    ``kind`` ("train", "prefill" or "decode") batch."""
+    i32 = torch.int32
+    dt = getattr(torch, cfg.compute_dtype)
+    b = global_batch
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype,  # noqa: E731
+                                            device="meta")
+    if kind in ("train", "prefill"):
+        out = {"tokens": meta((b, seq_len), i32)}
+        if kind == "train":
+            out["labels"] = meta((b, seq_len), i32)
+        if cfg.family == "vlm":
+            out["img"] = meta((b, cfg.n_img_tokens, cfg.d_model), dt)
+        if cfg.family == "audio":
+            out["frames"] = meta((b, cfg.n_audio_frames, cfg.d_model), dt)
+        return out
+    if kind == "decode":
+        return {"tokens": meta((b, 1), i32)}
+    raise ValueError(kind)
+
+
+def input_pspecs(cfg: ModelConfig, kind: str) -> Dict[str, P]:
+    """The inputs' sharding specs: the batch dim over ``DP``."""
+    out = {"tokens": P(DP, None)}
+    if kind == "train":
+        out["labels"] = P(DP, None)
+    if kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            out["img"] = P(DP, None, None)
+        if cfg.family == "audio":
+            out["frames"] = P(DP, None, None)
+    return out
 
 
 def make_inputs(cfg: ModelConfig, kind: str, batch: int, seq: int,
@@ -96,32 +163,70 @@ def make_inputs(cfg: ModelConfig, kind: str, batch: int, seq: int,
     return out
 
 
-def loss_fn(cfg: ModelConfig, params, batch, device=None) -> torch.Tensor:
+def _batch_on(cfg: ModelConfig, batch, dev: torch.device, mesh,
+              kind: str):
+    """The batch as tensors on ``dev``; with a mesh, as DTensors placed by
+    ``input_pspecs`` (a DTensor stays as it is)."""
+    if mesh is None:
+        return {k: _to(v, dev) for k, v in batch.items()}
+    from torch.distributed.tensor import DTensor
+    specs = input_pspecs(cfg, kind)
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, DTensor):
+            out[k] = v
+            continue
+        v = _to(v, dev)
+        spec = resolve_pspec(specs.get(k, P()), mesh, v.shape)
+        out[k] = distribute(v, mesh, placements(spec, mesh))
+    return out
+
+
+def loss_fn(cfg: ModelConfig, params, batch, device=None,
+            mesh=None) -> torch.Tensor:
     """Mean next-token cross entropy over the labels ``>= 0`` (0-d float32
-    tensor).  ``params`` must already be on ``device`` (default
-    ``cuda``).  The gold logit is gathered: the JAX package takes it by a
-    masked reduction, which keeps a sharded vocabulary sharded; nothing
-    is sharded here."""
+    tensor, the same on every rank of a mesh).  ``params`` must already
+    be on ``device`` (default ``cuda``).  The gold logit is taken by a
+    masked reduction over the vocabulary, as the JAX package takes it, so
+    that a vocabulary sharded over the mesh stays sharded."""
     dev = resolve_device(device)
     _check_params(params, dev)
-    batch = {k: _to(v, dev) for k, v in batch.items()}
-    logits, _ = forward(cfg, params, batch, cache=None)
-    labels = batch["labels"].long()
+    batch = _batch_on(cfg, batch, dev, mesh, "train")
+    logits, _ = forward(cfg, params, batch, cache=None, mesh=mesh)
+    labels = batch["labels"]
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    vidx = _vocab_iota(lf)
+    gold = torch.sum(torch.where(vidx == labels[..., None], lf, 0.0), dim=-1)
     mask = (labels >= 0).float()
-    return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
+    loss = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
                                                          min=1.0)
+    return loss.full_tensor() if mesh is not None else loss
 
 
-def forward_logits(cfg: ModelConfig, params, batch, device=None):
+def _vocab_iota(lf: torch.Tensor) -> torch.Tensor:
+    """Each logit's vocabulary index, shaped to broadcast against ``lf``
+    (B, S, V); with a DTensor, placed as ``lf``'s vocabulary dim."""
+    v = lf.shape[-1]
+    iota = torch.arange(v, dtype=torch.int32, device=lf.device)
+    if not hasattr(lf, "placements"):
+        return iota
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = lf.device_mesh
+    pl = tuple(Shard(0) if getattr(p, "dim", None) == lf.ndim - 1
+               else Replicate() for p in lf.placements)
+    return DTensor.from_local(iota, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(mesh, pl)
+
+
+def forward_logits(cfg: ModelConfig, params, batch, device=None, mesh=None):
     """Cache-free forward (prefill): (logits (B, S, vocab), None).
-    ``params`` must already be on ``device`` (default ``cuda``)."""
+    ``params`` must already be on ``device`` (default ``cuda``).  With a
+    mesh the logits are a DTensor."""
     dev = resolve_device(device)
     _check_params(params, dev)
-    batch = {k: _to(v, dev) for k, v in batch.items()}
-    return forward(cfg, params, batch, cache=None)
+    batch = _batch_on(cfg, batch, dev, mesh, "prefill")
+    return forward(cfg, params, batch, cache=None, mesh=mesh)
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, device=None):

@@ -6,16 +6,31 @@ same layouts at every public function: activations (B, S, D), heads
 kernel (:func:`repro_torch.kernels.ops.attention`) under the JAX
 package's shape conditions for its Pallas kernel; on CUDA tensors that
 launches the hand-written kernel, on CPU tensors its plain version.
+
+On a device mesh the activations and weights are DTensors
+(``torch.distributed.tensor``) and the same functions run SPMD on every
+rank of the mesh.  A block gathers its input's sequence over the model
+axis and its weights over the data axes (FSDP), multiplies on the local
+heads or columns (Megatron tensor parallelism), and reduce-scatters its
+output back onto the residual stream's placement
+(:func:`shard_act`, the JAX package's sharding constraints).  Attention
+and RoPE run on each rank's local batch rows and heads through
+``local_map``: the flash kernel reads raw device pointers, and positions
+are per row.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Optional, Tuple
 
 import torch
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel.sharding import P, placements, resolve_pspec
 
 from .config import ModelConfig
 
@@ -58,6 +73,121 @@ def cdt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+# ---------------------------------------------------------------------------
+# sharding on a device mesh
+# ---------------------------------------------------------------------------
+
+#: the mesh axes that split the batch and, for FSDP, the weights
+DATA_AXES = ("pod", "data")
+
+
+def is_sharded(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def shard_act(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """Megatron-style activation sharding: ``x`` redistributed to
+    ``spec`` resolved on ``mesh`` for its shape (an ``UNCONSTRAINED``
+    entry keeps the dim's sharding).  The identity without a mesh.
+
+    Used to keep the residual stream sequence-sharded between layers so
+    remat-saved activations shrink by the tensor-parallel degree; the
+    blocks gather it before their matmuls and reduce-scatter after."""
+    if mesh is None:
+        return x
+    spec = resolve_pspec(spec, mesh, x.shape)
+    return x.redistribute(mesh, placements(spec, mesh, x.placements))
+
+
+def weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w`` cast to ``dtype``; a DTensor then gathered over the data axes
+    (FSDP: its gradient is reduce-scattered back in the backward) and
+    left as it is over the model axis (tensor parallelism)."""
+    w = w.to(dtype)
+    if not is_sharded(w):
+        return w
+    mesh = w.device_mesh
+    pl = [Replicate() if a in DATA_AXES else p
+          for a, p in zip(mesh.mesh_dim_names, w.placements)]
+    return w.redistribute(mesh, pl)
+
+
+def replicated(w: torch.Tensor) -> torch.Tensor:
+    """``w`` whole on every rank (a plain tensor stays as it is)."""
+    if not is_sharded(w):
+        return w
+    return w.redistribute(w.device_mesh, [Replicate()] * w.device_mesh.ndim)
+
+
+def rows_whole(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, ...) split over the batch only: the placement every rank
+    computes a block's matmuls on (the JAX package's ``P(DP, None, ..)``)."""
+    if not is_sharded(x):
+        return x
+    return shard_act(x, P(DATA_AXES, *([None] * (x.ndim - 1))),
+                     x.device_mesh)
+
+
+def like(o: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``o`` placed as ``x`` (a partial sum is reduced, or reduce-scattered,
+    onto ``x``'s placement)."""
+    if not is_sharded(x):
+        return o
+    return o.redistribute(x.device_mesh, x.placements)
+
+
+def batch_like(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, ...), whole or a DTensor, placed as ``x``'s batch dim:
+    split where ``x`` splits its dim 0, whole elsewhere."""
+    mesh = x.device_mesh
+    pl = [Shard(0) if p == Shard(0) else Replicate() for p in x.placements]
+    if not is_sharded(t):
+        t = DTensor.from_local(t.contiguous(), mesh,
+                               [Replicate()] * mesh.ndim, run_check=False)
+    return t.redistribute(mesh, pl)
+
+
+def local_map(fn, out_placements, *args):
+    """``fn`` on each rank's local blocks of the DTensor ``args`` (other
+    arguments pass as they are); its result a DTensor of
+    ``out_placements`` (a sequence of placements), or its results
+    DTensors of the placements in ``out_placements`` (a tuple of such
+    sequences).  ``torch``'s ``local_map``: autograd
+    runs through it, and an input that is whole over a mesh dim on which
+    the results are split takes its gradient there as a partial sum.  A
+    partial-sum input is reduced first, so an output placed as one is
+    whole."""
+    from torch.distributed.tensor import Placement
+    from torch.distributed.tensor.experimental import local_map as lm
+    mesh = next(a.device_mesh for a in args if is_sharded(a))
+    # partial sums are reduced first: local_map's backward is wrong for
+    # a partial input (it was, through RoPE, on the row-parallel k)
+    args = tuple(a.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                       for p in a.placements])
+                 if is_sharded(a) else a for a in args)
+    in_pl = tuple(a.placements if is_sharded(a) else None for a in args)
+    # one output's placements are a list; a tuple holds one per output;
+    # with its inputs reduced, no output is a partial sum
+    whole = lambda pl: [Replicate() if p.is_partial() else p  # noqa: E731
+                        for p in pl]
+    if isinstance(out_placements[0], Placement):
+        out_placements = whole(out_placements)
+        outs = [out_placements]
+    else:
+        out_placements = tuple(whole(p) for p in out_placements)
+        outs = list(out_placements)
+    # an input whole over a mesh dim on which the results differ (they
+    # are split there) gets a different gradient on each rank of it: a
+    # partial sum
+    varies = [any(o[i] != Replicate() for o in outs)
+              for i in range(mesh.ndim)]
+    grad_pl = tuple(None if pl is None else
+                    [Partial() if v and p == Replicate() else p
+                     for p, v in zip(pl, varies)] for pl in in_pl)
+    return lm(fn, out_placements=out_placements, in_placements=in_pl,
+              in_grad_placements=grad_pl, device_mesh=mesh)(*args)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
@@ -66,7 +196,13 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (B, S, H, D); pos: (B, S) or (S,)."""
+    """x: (B, S, H, D); pos: (B, S) or (S,).  A DTensor ``x`` rotates on
+    each rank's local rows and heads."""
+    if is_sharded(x):
+        if pos.dim() == 1:
+            pos = pos[None].expand(x.shape[0], -1)
+        return local_map(lambda xl, pl: rope(xl, pl, theta), x.placements,
+                         x, batch_like(pos, x))
     d = x.shape[-1]
     half = d // 2
     freq = theta ** (-torch.arange(0, half, dtype=F32, device=x.device)
@@ -177,6 +313,8 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     multiples of 128); otherwise the blocked or the einsum path, as the
     JAX package does.
     """
+    if is_sharded(q):
+        return _sharded_attention(cfg, q, k, v, q_pos, k_pos, causal, window)
     b, s, h, d = q.shape
     kvh = k.shape[2]
     rep = h // kvh
@@ -206,6 +344,61 @@ def attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     return o.reshape(b, s, h, d).to(q.dtype)
 
 
+def _sharded_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, causal,
+                       window):
+    """:func:`attention` of DTensors, on each rank's local batch rows and,
+    when q's heads are split over the model axis, its local heads.
+
+    Each rank's q heads are a contiguous block of ``H / tp``.  When k
+    and v split their KV heads over the model axis too, the local KV
+    heads are the ones the local q heads read (GQA groups are
+    contiguous).  When they do not (the KV heads do not divide the
+    model axis, and ``wk``/``wv`` resolved row-parallel), k and v are
+    gathered whole and each rank takes the KV heads of its q heads,
+    which works when the local q heads cover whole GQA groups or lie in
+    one; otherwise q is gathered too and every rank computes every
+    head."""
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    tp = [i for i, a in enumerate(names) if a not in DATA_AXES]
+    h, kvh = q.shape[2], k.shape[2]
+    rep = h // kvh
+    heads = Shard(2)
+
+    def on_model(t, keep: bool):
+        pl = list(t.placements)
+        for i in tp:
+            pl[i] = heads if keep and pl[i] == heads else Replicate()
+        return t.redistribute(mesh, pl)
+
+    q_heads = bool(tp) and all(q.placements[i] == heads for i in tp)
+    kv_heads = q_heads and all(t.placements[i] == heads for t in (k, v)
+                               for i in tp)
+    sel = None
+    if q_heads and not kv_heads:
+        n = math.prod(mesh.size(i) for i in tp)
+        c = 0
+        for i in tp:
+            c = c * mesh.size(i) + mesh.get_coordinate()[i]
+        hl = h // n
+        if hl % rep == 0 or rep % hl == 0:
+            lo = c * hl // rep
+            sel = slice(lo, lo + max(hl // rep, 1))
+        else:
+            q_heads = False
+    q = on_model(q, q_heads)
+    k, v = on_model(k, kv_heads), on_model(v, kv_heads)
+
+    def local(ql, kl, vl, qp, kp):
+        if sel is not None:
+            kl, vl = kl[:, :, sel], vl[:, :, sel]
+        return attention(cfg, ql, kl, vl, qp, kp, causal=causal,
+                         window=window)
+
+    return local_map(local, q.placements, q, k, v, batch_like(q_pos, q),
+                     batch_like(k_pos, k))
+
+
 def attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
                cache: Optional[Tuple] = None, causal: bool = True,
                window: int = 0, rope_on: bool = True):
@@ -217,14 +410,14 @@ def attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
     cache is not written in place: the new one is returned.
     """
     b, s, _ = x.shape
-    y = rmsnorm(x, p["ln"], cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", y, p["wq"].to(y.dtype))
-    k = torch.einsum("bsd,dhk->bshk", y, p["wk"].to(y.dtype))
-    v = torch.einsum("bsd,dhk->bshk", y, p["wv"].to(y.dtype))
+    y = rows_whole(rmsnorm(x, p["ln"], cfg.norm_eps))
+    q = torch.einsum("bsd,dhk->bshk", y, weight(p["wq"], y.dtype))
+    k = torch.einsum("bsd,dhk->bshk", y, weight(p["wk"], y.dtype))
+    v = torch.einsum("bsd,dhk->bshk", y, weight(p["wv"], y.dtype))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(y.dtype)
-        k = k + p["bk"].to(y.dtype)
-        v = v + p["bv"].to(y.dtype)
+        q = q + weight(p["bq"], y.dtype)
+        k = k + weight(p["bk"], y.dtype)
+        v = v + weight(p["bv"], y.dtype)
     if rope_on:
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
@@ -258,16 +451,17 @@ def attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
                       window=window)
         new_cache = (kc, vc, idx + s)
 
-    o = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
-    return x + o, new_cache
+    o = torch.einsum("bshk,hkd->bsd", o, weight(p["wo"], o.dtype))
+    return x + like(o, x), new_cache
 
 
 def swiglu(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = rmsnorm(x, p["ln"], cfg.norm_eps)
-    g = torch.einsum("bsd,df->bsf", y, p["w1"].to(y.dtype))
-    u = torch.einsum("bsd,df->bsf", y, p["w3"].to(y.dtype))
+    y = rows_whole(rmsnorm(x, p["ln"], cfg.norm_eps))
+    g = torch.einsum("bsd,df->bsf", y, weight(p["w1"], y.dtype))
+    u = torch.einsum("bsd,df->bsf", y, weight(p["w3"], y.dtype))
     z = torch.nn.functional.silu(g.float()).to(y.dtype) * u
-    return x + torch.einsum("bsf,fd->bsd", z, p["w2"].to(y.dtype))
+    return x + like(torch.einsum("bsf,fd->bsd", z,
+                                 weight(p["w2"], y.dtype)), x)
 
 
 def cross_attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -277,16 +471,17 @@ def cross_attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     ``tanh(p["gate"])``."""
     b, s, _ = x.shape
     t = kv_embed.shape[1]
-    y = rmsnorm(x, p["ln"], cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", y, p["wq"].to(y.dtype))
+    y = rows_whole(rmsnorm(x, p["ln"], cfg.norm_eps))
+    q = torch.einsum("bsd,dhk->bshk", y, weight(p["wq"], y.dtype))
     kvn = rmsnorm(kv_embed, p["ln_kv"], cfg.norm_eps) if "ln_kv" in p \
         else kv_embed
-    k = torch.einsum("btd,dhk->bthk", kvn.to(y.dtype), p["wk"].to(y.dtype))
-    v = torch.einsum("btd,dhk->bthk", kvn.to(y.dtype), p["wv"].to(y.dtype))
+    kvn = rows_whole(kvn).to(y.dtype)
+    k = torch.einsum("btd,dhk->bthk", kvn, weight(p["wk"], y.dtype))
+    v = torch.einsum("btd,dhk->bthk", kvn, weight(p["wv"], y.dtype))
     qpos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
     kpos = torch.zeros((b, t), dtype=torch.int32, device=x.device)
     o = attention(cfg, q, k, v, qpos, kpos, causal=False)
-    o = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    o = torch.einsum("bshk,hkd->bsd", o, weight(p["wo"], o.dtype))
     if gated:
         o = o * torch.tanh(p["gate"].float()).to(o.dtype)
-    return x + o
+    return x + like(o, x)

@@ -2,10 +2,10 @@
 
 Every model family defines one ``tree(cfg, leaf)`` function where ``leaf``
 is a callback ``leaf(name, shape, spec, scale)``.  Instantiating it with
-different callbacks yields real parameters or shape-only stand-ins, which
-can never drift.  The counterpart of the JAX package's
-``repro.models.params``; ``spec`` (a sharding hint there) is ``None`` here
-until the sharding slice.
+different callbacks yields real parameters, shape-only stand-ins or
+PartitionSpec trees, which can never drift.  The counterpart of the JAX
+package's ``repro.models.params``; ``spec`` is the leaf's sharding spec
+(:mod:`repro_torch.parallel.sharding`), a spec or an :class:`Alt`.
 """
 from __future__ import annotations
 
@@ -15,6 +15,18 @@ from typing import Any, Callable
 import torch
 
 Leaf = Callable[[str, tuple, Any, float], torch.Tensor]
+
+
+class Alt(tuple):
+    """Ordered sharding alternatives; the resolver picks the first whose
+    sharded dims divide evenly on the target mesh (e.g. GQA head-sharding
+    falls back to input-dim row-parallel when heads % tp != 0)."""
+
+    def __new__(cls, *specs):
+        return super().__new__(cls, specs)
+
+    def __reduce__(self):
+        return (Alt, tuple(self))
 
 
 def zlib_crc(name: str) -> int:
@@ -48,4 +60,11 @@ def abstract_leaf(dtype: torch.dtype) -> Leaf:
     """Shape-only stand-ins: tensors on the ``meta`` device."""
     def leaf(name, shape, spec, scale):
         return torch.empty(shape, dtype=dtype, device="meta")
+    return leaf
+
+
+def spec_leaf() -> Leaf:
+    """The leaf's sharding spec."""
+    def leaf(name, shape, spec, scale):
+        return spec
     return leaf

@@ -14,7 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .common import rmsnorm
+from .common import (is_sharded, like, local_map, replicated, rmsnorm,
+                     rows_whole, weight)
 from .config import ModelConfig
 
 F32 = torch.float32
@@ -125,6 +126,39 @@ def causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                                     ).to(xbc.dtype), new_state
 
 
+def _mix_core(cfg: ModelConfig, xi, bb, cc, dt, z, conv_w, conv_b, a_log,
+              d_skip, dt_bias, cache: Optional[Tuple]):
+    """The mixer between its input and output projections: softplus'd
+    step sizes, the causal conv, the SSD scan (or decode step), the skip
+    and the gate.  Returns (y (B, S, din), new_cache)."""
+    bsz, s, _ = xi.shape
+    din = cfg.d_inner
+    nh, ph, ns = cfg.n_ssm_heads, cfg.ssm_d_head, cfg.ssm_state
+    # jax.nn.softplus is logaddexp(x, 0)
+    dt = dt.float() + dt_bias.float()
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))
+
+    xbc = torch.cat([xi, bb, cc], dim=-1)
+    conv_state = None if cache is None else cache[0]
+    xbc, conv_state_new = causal_conv(xbc, conv_w, conv_b, conv_state)
+    xi = xbc[..., :din]
+    bb = xbc[..., din:din + ns]
+    cc = xbc[..., din + ns:]
+
+    xh = xi.reshape(bsz, s, nh, ph)
+    if cache is None:
+        y, _ = ssd_chunked(xh, dt, a_log, bb, cc)
+        new_cache = None
+    else:
+        y, h_fin = ssd_decode(xh, dt, a_log, bb, cc, cache[1])
+        new_cache = (conv_state_new, h_fin)
+    y = y + xh.float().to(y.dtype) * d_skip.to(y.dtype)[None, None, :, None]
+    y = y.reshape(bsz, s, din)
+    if z is not None:
+        y = y * torch.nn.functional.silu(z.float()).to(y.dtype)
+    return y, new_cache
+
+
 def mamba2_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
                cache: Optional[Tuple] = None, gated: bool = True):
     """Full mamba2 mixer.  x: (B, S, d_model) -> (y, new_cache).
@@ -133,41 +167,35 @@ def mamba2_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
     Param dict p: in_z (d, din) [optional], in_x (d, din), in_b (d, N),
     in_c (d, N), in_dt (d, H), conv_w (K, din+2N), conv_b, a_log (H,),
     d_skip (H,), dt_bias (H,), out (din, d).
+
+    On a mesh (DTensor ``x``, no cache) the projections run as the
+    attention block's do, on the batch rows of each rank with the
+    sequence whole; the conv and the scan, which have no DTensor rules
+    (``cumsum``, segment sums, the chunk loop), run on each rank's batch
+    rows through ``local_map``; the output projection's partial sums are
+    reduce-scattered back onto ``x``'s placement.
     """
-    bsz, s, _ = x.shape
-    din = cfg.d_inner
-    nh, ph, ns = cfg.n_ssm_heads, cfg.ssm_d_head, cfg.ssm_state
-
-    xi = torch.einsum("bsd,de->bse", x, p["in_x"].to(x.dtype))
-    bb = torch.einsum("bsd,dn->bsn", x, p["in_b"].to(x.dtype))
-    cc = torch.einsum("bsd,dn->bsn", x, p["in_c"].to(x.dtype))
-    dt = torch.einsum("bsd,dh->bsh", x, p["in_dt"].to(x.dtype))
-    # jax.nn.softplus is logaddexp(x, 0)
-    dt = dt.float() + p["dt_bias"].float()
-    dt = torch.logaddexp(dt, torch.zeros_like(dt))
-
-    xbc = torch.cat([xi, bb, cc], dim=-1)
-    conv_state = None if cache is None else cache[0]
-    xbc, conv_state_new = causal_conv(xbc, p["conv_w"], p["conv_b"],
-                                      conv_state)
-    xi = xbc[..., :din]
-    bb = xbc[..., din:din + ns]
-    cc = xbc[..., din + ns:]
-
-    xh = xi.reshape(bsz, s, nh, ph)
-    if cache is None:
-        y, _ = ssd_chunked(xh, dt, p["a_log"], bb, cc)
+    xt = rows_whole(x)
+    proj = lambda w: torch.einsum("bsd,de->bse", xt,  # noqa: E731
+                                  weight(w, x.dtype))
+    xi, bb, cc, dt = (proj(p[k]) for k in ("in_x", "in_b", "in_c", "in_dt"))
+    z = proj(p["in_z"]) if gated and "in_z" in p else None
+    small = [p[k] for k in ("conv_w", "conv_b", "a_log", "d_skip",
+                            "dt_bias")]
+    if is_sharded(x):
+        if cache is not None:
+            raise NotImplementedError("SSM decoding on a mesh")
+        ins = [rows_whole(t) for t in (xi, bb, cc, dt)]
+        ins.append(None if z is None else rows_whole(z))
+        ins += [replicated(w) for w in small]
+        y = local_map(
+            lambda *a: _mix_core(cfg, *a, None)[0],
+            ins[0].placements, *ins)
         new_cache = None
     else:
-        y, h_fin = ssd_decode(xh, dt, p["a_log"], bb, cc, cache[1])
-        new_cache = (conv_state_new, h_fin)
-    y = y + xh.float().to(y.dtype) * \
-        p["d_skip"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(bsz, s, din)
-    if gated and "in_z" in p:
-        z = torch.einsum("bsd,de->bse", x, p["in_z"].to(x.dtype))
-        y = y * torch.nn.functional.silu(z.float()).to(y.dtype)
-    return torch.einsum("bse,ed->bsd", y, p["out"].to(y.dtype)), new_cache
+        y, new_cache = _mix_core(cfg, xi, bb, cc, dt, z, *small, cache)
+    out = torch.einsum("bse,ed->bsd", y, weight(p["out"], y.dtype))
+    return like(out, x), new_cache
 
 
 def mamba_block(cfg: ModelConfig, p: dict, x: torch.Tensor,

@@ -21,12 +21,21 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .common import (attn_block, cdt, cross_attn_block, current_route,
-                     rmsnorm, swiglu)
+from .common import (attn_block, batch_like, cdt, cross_attn_block,
+                     current_route, is_sharded, rmsnorm, rows_whole,
+                     shard_act, swiglu, weight)
 from .config import ModelConfig
 from .moe import moe_block
-from .params import Leaf
+from .params import Alt, Leaf
 from .ssm import mamba2_mix, mamba_block
+from repro_torch.parallel.sharding import P
+
+# mesh axis aliases used in the PartitionSpecs below
+DP = ("pod", "data")     # batch axis
+TP = "model"             # tensor axis
+FS = ("pod", "data")     # FSDP axis: params/grads/moments sharded over data
+                         # (each layer gathers its weights over data and
+                         # reduce-scatters their gradients: ZeRO-3)
 
 
 # ---------------------------------------------------------------------------
@@ -37,48 +46,71 @@ def _attn_tree(cfg: ModelConfig, leaf: Leaf, pre: str, ln_kv: bool = False,
                gate: bool = False, lead: tuple = ()) -> Dict[str, Any]:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
     sc = 0.02
+    lp = tuple(None for _ in lead)
+    # primary: Megatron head-sharding (+FSDP on d); fallback: input-dim
+    # row-parallel (+FSDP on head_dim)
+    qkv_spec = Alt(P(*lp, FS, TP, None), P(*lp, TP, None, FS),
+                   P(*lp, FS, None, None), P(*lp, None, None, None))
+    o_spec = Alt(P(*lp, TP, None, FS), P(*lp, FS, None, TP),
+                 P(*lp, None, None, FS), P(*lp, None, None, None))
     t = {
-        "ln": leaf(pre + ".ln", lead + (d,), None, 1.0),
-        "wq": leaf(pre + ".wq", lead + (d, h, hd), None, sc),
-        "wk": leaf(pre + ".wk", lead + (d, kv, hd), None, sc),
-        "wv": leaf(pre + ".wv", lead + (d, kv, hd), None, sc),
-        "wo": leaf(pre + ".wo", lead + (h, hd, d), None, sc),
+        "ln": leaf(pre + ".ln", lead + (d,), P(*lp, None), 1.0),
+        "wq": leaf(pre + ".wq", lead + (d, h, hd), qkv_spec, sc),
+        "wk": leaf(pre + ".wk", lead + (d, kv, hd), qkv_spec, sc),
+        "wv": leaf(pre + ".wv", lead + (d, kv, hd), qkv_spec, sc),
+        "wo": leaf(pre + ".wo", lead + (h, hd, d), o_spec, sc),
     }
     if cfg.qkv_bias:
-        t["bq"] = leaf(pre + ".bq", lead + (h, hd), None, 0.0)
-        t["bk"] = leaf(pre + ".bk", lead + (kv, hd), None, 0.0)
-        t["bv"] = leaf(pre + ".bv", lead + (kv, hd), None, 0.0)
+        b_spec = Alt(P(*lp, TP, None), P(*lp, None, None))
+        t["bq"] = leaf(pre + ".bq", lead + (h, hd), b_spec, 0.0)
+        t["bk"] = leaf(pre + ".bk", lead + (kv, hd), b_spec, 0.0)
+        t["bv"] = leaf(pre + ".bv", lead + (kv, hd), b_spec, 0.0)
     if ln_kv:
-        t["ln_kv"] = leaf(pre + ".ln_kv", lead + (d,), None, 1.0)
+        t["ln_kv"] = leaf(pre + ".ln_kv", lead + (d,), P(*lp, None), 1.0)
     if gate:
-        t["gate"] = leaf(pre + ".gate", lead + (1,), None, 0.0)
+        t["gate"] = leaf(pre + ".gate", lead + (1,), P(*lp, None), 0.0)
     return t
 
 
 def _mlp_tree(cfg: ModelConfig, leaf: Leaf, pre: str, lead: tuple = ()):
     d, f = cfg.d_model, cfg.d_ff
+    lp = tuple(None for _ in lead)
     return {
-        "ln": leaf(pre + ".ln", lead + (d,), None, 1.0),
-        "w1": leaf(pre + ".w1", lead + (d, f), None, 0.02),
-        "w3": leaf(pre + ".w3", lead + (d, f), None, 0.02),
-        "w2": leaf(pre + ".w2", lead + (f, d), None, 0.02),
+        "ln": leaf(pre + ".ln", lead + (d,), P(*lp, None), 1.0),
+        "w1": leaf(pre + ".w1", lead + (d, f), Alt(P(*lp, FS, TP),
+                                                   P(*lp, None, TP)), 0.02),
+        "w3": leaf(pre + ".w3", lead + (d, f), Alt(P(*lp, FS, TP),
+                                                   P(*lp, None, TP)), 0.02),
+        "w2": leaf(pre + ".w2", lead + (f, d), Alt(P(*lp, TP, FS),
+                                                   P(*lp, TP, None)), 0.02),
     }
 
 
 def _moe_tree(cfg: ModelConfig, leaf: Leaf, pre: str, lead: tuple = ()):
     d, e, f = cfg.d_model, cfg.moe_experts, cfg.moe_d_ff
+    lp = tuple(None for _ in lead)
+    # primary: expert parallelism (+FSDP on d); fallback: TP inside each
+    # expert's FFN (+FSDP on d)
+    w13_spec = Alt(P(*lp, TP, FS, None), P(*lp, None, FS, TP),
+                   P(*lp, None, None, TP), P(*lp, None, None, None))
+    w2_spec = Alt(P(*lp, TP, None, FS), P(*lp, None, TP, FS),
+                  P(*lp, None, TP, None), P(*lp, None, None, None))
     t = {
-        "ln": leaf(pre + ".ln", lead + (d,), None, 1.0),
-        "router": leaf(pre + ".router", lead + (d, e), None, 0.02),
-        "w1": leaf(pre + ".w1", lead + (e, d, f), None, 0.02),
-        "w3": leaf(pre + ".w3", lead + (e, d, f), None, 0.02),
-        "w2": leaf(pre + ".w2", lead + (e, f, d), None, 0.02),
+        "ln": leaf(pre + ".ln", lead + (d,), P(*lp, None), 1.0),
+        "router": leaf(pre + ".router", lead + (d, e), P(*lp, None, None),
+                       0.02),
+        "w1": leaf(pre + ".w1", lead + (e, d, f), w13_spec, 0.02),
+        "w3": leaf(pre + ".w3", lead + (e, d, f), w13_spec, 0.02),
+        "w2": leaf(pre + ".w2", lead + (e, f, d), w2_spec, 0.02),
     }
     if cfg.moe_shared:
         fs = cfg.moe_shared * f
-        t["w1s"] = leaf(pre + ".w1s", lead + (d, fs), None, 0.02)
-        t["w3s"] = leaf(pre + ".w3s", lead + (d, fs), None, 0.02)
-        t["w2s"] = leaf(pre + ".w2s", lead + (fs, d), None, 0.02)
+        t["w1s"] = leaf(pre + ".w1s", lead + (d, fs), Alt(
+            P(*lp, FS, TP), P(*lp, None, TP)), 0.02)
+        t["w3s"] = leaf(pre + ".w3s", lead + (d, fs), Alt(
+            P(*lp, FS, TP), P(*lp, None, TP)), 0.02)
+        t["w2s"] = leaf(pre + ".w2s", lead + (fs, d), Alt(
+            P(*lp, TP, FS), P(*lp, TP, None)), 0.02)
     return t
 
 
@@ -88,32 +120,40 @@ def _mamba_tree(cfg: ModelConfig, leaf: Leaf, pre: str, lead: tuple = (),
     nh = cfg.n_ssm_heads
     k = cfg.conv_width
     convd = din + 2 * ns
+    lp = tuple(None for _ in lead)
     t = {
-        "ln": leaf(pre + ".ln", lead + (d,), None, 1.0),
-        "in_x": leaf(pre + ".in_x", lead + (d, din), None, 0.02),
-        "in_b": leaf(pre + ".in_b", lead + (d, ns), None, 0.02),
-        "in_c": leaf(pre + ".in_c", lead + (d, ns), None, 0.02),
-        "in_dt": leaf(pre + ".in_dt", lead + (d, nh), None, 0.02),
-        "conv_w": leaf(pre + ".conv_w", lead + (k, convd), None, 0.1),
-        "conv_b": leaf(pre + ".conv_b", lead + (convd,), None, 0.0),
-        "a_log": leaf(pre + ".a_log", lead + (nh,), None, 0.5),
-        "d_skip": leaf(pre + ".d_skip", lead + (nh,), None, 1.0),
-        "dt_bias": leaf(pre + ".dt_bias", lead + (nh,), None, 0.5),
-        "out": leaf(pre + ".out", lead + (din, d), None, 0.02),
+        "ln": leaf(pre + ".ln", lead + (d,), P(*lp, None), 1.0),
+        "in_x": leaf(pre + ".in_x", lead + (d, din), Alt(
+            P(*lp, FS, TP), P(*lp, None, TP)), 0.02),
+        "in_b": leaf(pre + ".in_b", lead + (d, ns), P(*lp, FS, None), 0.02),
+        "in_c": leaf(pre + ".in_c", lead + (d, ns), P(*lp, FS, None), 0.02),
+        "in_dt": leaf(pre + ".in_dt", lead + (d, nh), P(*lp, FS, None),
+                      0.02),
+        "conv_w": leaf(pre + ".conv_w", lead + (k, convd), P(*lp, None, TP),
+                       0.1),
+        "conv_b": leaf(pre + ".conv_b", lead + (convd,), P(*lp, TP), 0.0),
+        "a_log": leaf(pre + ".a_log", lead + (nh,), P(*lp, None), 0.5),
+        "d_skip": leaf(pre + ".d_skip", lead + (nh,), P(*lp, None), 1.0),
+        "dt_bias": leaf(pre + ".dt_bias", lead + (nh,), P(*lp, None), 0.5),
+        "out": leaf(pre + ".out", lead + (din, d), Alt(
+            P(*lp, TP, FS), P(*lp, TP, None)), 0.02),
     }
     if gated:
-        t["in_z"] = leaf(pre + ".in_z", lead + (d, din), None, 0.02)
+        t["in_z"] = leaf(pre + ".in_z", lead + (d, din), Alt(
+            P(*lp, FS, TP), P(*lp, None, TP)), 0.02)
     return t
 
 
 def param_tree(cfg: ModelConfig, leaf: Leaf) -> Dict[str, Any]:
     d, v = cfg.d_model, cfg.vocab
     t: Dict[str, Any] = {
-        "embed": leaf("embed", (v, d), None, 0.02),
-        "ln_f": leaf("ln_f", (d,), None, 1.0),
+        "embed": leaf("embed", (v, d), Alt(P(TP, FS), P(FS, TP),
+                                           P(None, TP)), 0.02),
+        "ln_f": leaf("ln_f", (d,), P(None), 1.0),
     }
     if not cfg.tie_embeddings:
-        t["head"] = leaf("head", (d, v), None, 0.02)
+        t["head"] = leaf("head", (d, v), Alt(P(FS, TP), P(TP, FS),
+                                             P(TP, None)), 0.02)
     L = (cfg.n_layers,)
 
     if cfg.family == "dense":
@@ -128,8 +168,8 @@ def param_tree(cfg: ModelConfig, leaf: Leaf) -> Dict[str, Any]:
         t["layers"] = {
             "attn": _attn_tree(cfg, leaf, "L.attn", lead=L),
             "mamba": _mamba_tree(cfg, leaf, "L.mamba", lead=L, gated=False),
-            "mix_a": leaf("L.mix_a", L + (d,), None, 1.0),
-            "mix_s": leaf("L.mix_s", L + (d,), None, 1.0),
+            "mix_a": leaf("L.mix_a", L + (d,), P(None, None), 1.0),
+            "mix_s": leaf("L.mix_s", L + (d,), P(None, None), 1.0),
             "mlp": _mlp_tree(cfg, leaf, "L.mlp", lead=L),
         }
     elif cfg.family == "vlm":
@@ -140,14 +180,16 @@ def param_tree(cfg: ModelConfig, leaf: Leaf) -> Dict[str, Any]:
         t["xlayers"] = {"xattn": _attn_tree(cfg, leaf, "X.attn", ln_kv=True,
                                             gate=True, lead=(g,)),
                         "mlp": _mlp_tree(cfg, leaf, "X.mlp", lead=(g,)),
-                        "gate_mlp": leaf("X.gate_mlp", (g, 1), None, 0.0)}
+                        "gate_mlp": leaf("X.gate_mlp", (g, 1), P(None, None),
+                                         0.0)}
     elif cfg.family == "audio":
         eL = (cfg.encoder_layers,)
-        t["enc_pos"] = leaf("enc_pos", (cfg.n_audio_frames, d), None, 0.02)
+        t["enc_pos"] = leaf("enc_pos", (cfg.n_audio_frames, d),
+                            P(None, FS), 0.02)
         t["enc_layers"] = {"attn": _attn_tree(cfg, leaf, "E.attn", lead=eL),
                            "mlp": _mlp_tree(cfg, leaf, "E.mlp", lead=eL)}
-        t["enc_ln_f"] = leaf("enc_ln_f", (d,), None, 1.0)
-        t["dec_pos"] = leaf("dec_pos", (cfg.max_seq, d), None, 0.02)
+        t["enc_ln_f"] = leaf("enc_ln_f", (d,), P(None), 1.0)
+        t["dec_pos"] = leaf("dec_pos", (cfg.max_seq, d), P(FS, None), 0.02)
         t["layers"] = {"attn": _attn_tree(cfg, leaf, "D.attn", lead=L),
                        "xattn": _attn_tree(cfg, leaf, "D.xattn", ln_kv=True,
                                            lead=L),
@@ -168,18 +210,20 @@ def cache_tree(cfg: ModelConfig, leaf, batch_size: int, cache_len: int):
     layers ``cache_len``."""
     L, kv, hd = cfg.n_layers, cfg.kv_heads, cfg.head_dim
     fam = cfg.family
-    mk = lambda name, shape: leaf(name, shape, None, 0.0)   # noqa: E731
-    idx = leaf("idx", (), None, 0.0)
+    mk = lambda name, shape, spec: leaf(name, shape, spec, 0.0)  # noqa: E731
+    idx = leaf("idx", (), P(), 0.0)
     if fam in ("dense", "moe"):
-        return {"k": mk("ck", (L, batch_size, cache_len, kv, hd)),
-                "v": mk("cv", (L, batch_size, cache_len, kv, hd)),
+        return {"k": mk("ck", (L, batch_size, cache_len, kv, hd),
+                        P(None, DP, None, None, None)),
+                "v": mk("cv", (L, batch_size, cache_len, kv, hd),
+                        P(None, DP, None, None, None)),
                 "idx": idx}
     if fam == "ssm":
         convd = cfg.d_inner + 2 * cfg.ssm_state
-        return {"conv": mk("conv", (L, batch_size, cfg.conv_width - 1,
-                                    convd)),
-                "h": mk("h", (L, batch_size, cfg.n_ssm_heads,
-                              cfg.ssm_d_head, cfg.ssm_state)),
+        return {"conv": mk("conv", (L, batch_size, cfg.conv_width - 1, convd),
+                           P(None, DP, None, TP)),
+                "h": mk("h", (L, batch_size, cfg.n_ssm_heads, cfg.ssm_d_head,
+                              cfg.ssm_state), P(None, DP, TP, None, None)),
                 "idx": idx}
     if fam == "hybrid":
         convd = cfg.d_inner + 2 * cfg.ssm_state
@@ -188,26 +232,31 @@ def cache_tree(cfg: ModelConfig, leaf, batch_size: int, cache_len: int):
             t = cache_len if l in cfg.global_layers else min(cfg.window,
                                                              cache_len)
             layers.append((
-                mk(f"ck{l}", (batch_size, t, kv, hd)),
-                mk(f"cv{l}", (batch_size, t, kv, hd)),
-                mk(f"conv{l}", (batch_size, cfg.conv_width - 1, convd)),
+                mk(f"ck{l}", (batch_size, t, kv, hd), P(DP, None, None, None)),
+                mk(f"cv{l}", (batch_size, t, kv, hd), P(DP, None, None, None)),
+                mk(f"conv{l}", (batch_size, cfg.conv_width - 1, convd),
+                   P(DP, None, TP)),
                 mk(f"h{l}", (batch_size, cfg.n_ssm_heads, cfg.ssm_d_head,
-                             cfg.ssm_state)),
+                             cfg.ssm_state), P(DP, TP, None, None)),
             ))
         return {"layers": tuple(layers), "idx": idx}
     if fam == "vlm":
         g = cfg.n_layers // cfg.cross_attn_interval
         k_inner = cfg.cross_attn_interval - 1
-        return {"k": mk("ck", (g, k_inner, batch_size, cache_len, kv, hd)),
-                "v": mk("cv", (g, k_inner, batch_size, cache_len, kv, hd)),
-                "img": mk("img", (batch_size, cfg.n_img_tokens,
-                                  cfg.d_model)),
+        return {"k": mk("ck", (g, k_inner, batch_size, cache_len, kv, hd),
+                        P(None, None, DP, None, None, None)),
+                "v": mk("cv", (g, k_inner, batch_size, cache_len, kv, hd),
+                        P(None, None, DP, None, None, None)),
+                "img": mk("img", (batch_size, cfg.n_img_tokens, cfg.d_model),
+                          P(DP, None, None)),
                 "idx": idx}
     if fam == "audio":
-        return {"k": mk("ck", (L, batch_size, cache_len, kv, hd)),
-                "v": mk("cv", (L, batch_size, cache_len, kv, hd)),
-                "enc": mk("enc", (batch_size, cfg.n_audio_frames,
-                                  cfg.d_model)),
+        return {"k": mk("ck", (L, batch_size, cache_len, kv, hd),
+                        P(None, DP, None, None, None)),
+                "v": mk("cv", (L, batch_size, cache_len, kv, hd),
+                        P(None, DP, None, None, None)),
+                "enc": mk("enc", (batch_size, cfg.n_audio_frames, cfg.d_model),
+                          P(DP, None, None)),
                 "idx": idx}
     raise ValueError(fam)
 
@@ -216,17 +265,27 @@ def cache_tree(cfg: ModelConfig, leaf, batch_size: int, cache_len: int):
 # forward passes
 # ---------------------------------------------------------------------------
 
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``; a DTensor table is gathered over the data axes and
+    looked up where its rows lie (a vocabulary split over the model axis
+    gives partial sums that the caller's placement reduces)."""
+    if not is_sharded(table):
+        return table[idx.long()]
+    return torch.nn.functional.embedding(idx.long(),
+                                         weight(table, table.dtype))
+
+
 def _embed(cfg: ModelConfig, params, tokens):
     # gather, then cast: the same values as casting the table first; the
     # gradient's duplicate rows add up in the table's dtype (the JAX
     # package adds them in the compute dtype)
-    return params["embed"][tokens.long()].to(cdt(cfg))
+    return _rows(params["embed"], tokens).to(cdt(cfg))
 
 
 def _unembed(cfg: ModelConfig, params, x):
-    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    x = rows_whole(rmsnorm(x, params["ln_f"], cfg.norm_eps))
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+    return torch.einsum("bsd,dv->bsv", x, weight(w, x.dtype))
 
 
 def _dense_layer(cfg, pl_, x, pos, cache, window=0):
@@ -235,9 +294,9 @@ def _dense_layer(cfg, pl_, x, pos, cache, window=0):
     return x, cache
 
 
-def _moe_layer(cfg, pl_, x, pos, cache):
+def _moe_layer(cfg, pl_, x, pos, cache, mesh=None):
     x, cache = attn_block(cfg, pl_["attn"], x, pos, cache)
-    x = moe_block(cfg, pl_["moe"], x)
+    x = moe_block(cfg, pl_["moe"], x, mesh)
     return x, cache
 
 
@@ -298,7 +357,7 @@ def _encode_audio(cfg: ModelConfig, params, frames, remat: bool = False):
     """Whisper encoder over precomputed (stub) frame embeddings."""
     b, t, _ = frames.shape
     dt = cdt(cfg)
-    x = frames.to(dt) + params["enc_pos"][:t].to(dt)[None]
+    x = frames.to(dt) + weight(params["enc_pos"], dt)[:t][None]
     pos = torch.arange(t, dtype=torch.int32,
                        device=frames.device)[None].expand(b, t)
 
@@ -313,16 +372,28 @@ def _encode_audio(cfg: ModelConfig, params, frames, remat: bool = False):
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-            cache: Optional[Dict] = None):
+            cache: Optional[Dict] = None, mesh=None):
     """Returns (logits, new_cache).  Train/prefill when cache is None.
 
     Decode caches are not written in place: the new one is returned.  An
     SSM state leaves a decode step in float32 whatever dtype it came in
-    with, as in the JAX package."""
+    with, as in the JAX package.
+
+    ``mesh`` (a ``DeviceMesh``; ``params`` and ``batch`` DTensors on it)
+    runs the cache-free forward SPMD, with the sequence-parallel
+    constraint ``P(DP, TP, None)`` on the residual stream between layers
+    (remat-saved activations shrink by the TP degree); the logits come
+    out as a DTensor, the vocabulary split as the head is."""
+    if mesh is not None and cache is not None:
+        raise NotImplementedError("decoding on a mesh: the sharded path "
+                                  "is the cache-free forward")
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
-    x = _embed(cfg, params, tokens)
+    sp = P(DP, TP, None)
+    sa = (lambda t: shard_act(t, sp, mesh)) if cache is None \
+        else (lambda t: t)
+    x = sa(_embed(cfg, params, tokens))
     ar = torch.arange(s, dtype=torch.int32, device=dev)[None]
     if cache is None:
         pos = ar.expand(b, s)
@@ -344,13 +415,13 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             if fam == "dense":
                 return _dense_layer(cfg, pl_, xx, pos, c_l)
             if fam == "moe":
-                return _moe_layer(cfg, pl_, xx, pos, c_l)
+                return _moe_layer(cfg, pl_, xx, pos, c_l, mesh)
             return mamba_block(cfg, pl_["mamba"], xx, c_l)
 
         outs = []
         for l, pl_ in enumerate(_layers(params["layers"], L)):
             if cache is None:
-                x = _body(lambda xx, pp=pl_: layer(xx, pp, None)[0], x,
+                x = _body(lambda xx, pp=pl_: sa(layer(xx, pp, None)[0]), x,
                           remat)
                 continue
             c_l = (cache["conv"][l], cache["h"][l]) if fam == "ssm" \
@@ -368,8 +439,8 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         for l, pl_ in enumerate(_layers(params["layers"], L)):
             is_global = l in cfg.global_layers
             if cache is None:
-                x = _body(lambda xx, pp=pl_, gl=is_global: _hybrid_layer(
-                    cfg, pp, xx, pos, None, gl)[0], x, remat)
+                x = sa(_body(lambda xx, pp=pl_, gl=is_global: _hybrid_layer(
+                    cfg, pp, xx, pos, None, gl)[0], x, remat))
                 continue
             kc, vc, conv_s, h_s = cache["layers"][l]
             x, ((kc, vc, _), (conv_s, h_s)) = _hybrid_layer(
@@ -405,7 +476,7 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                                             _layers(params["xlayers"], g))):
             if cache is None:
                 x = _body(lambda xx, gg=gi, pp=pl_, qq=px_:
-                          group(xx, gg, pp, qq)[0], x, remat)
+                          sa(group(xx, gg, pp, qq)[0]), x, remat)
                 continue
             x, kv_out = group(x, gi, pl_, px_)
             ks.append(torch.stack([o[0] for o in kv_out]))
@@ -418,7 +489,9 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         enc = _encode_audio(cfg, params, batch["frames"], remat) \
             if cache is None else cache["enc"]
         # gather, then cast: the same values as casting the table first
-        x = x + params["dec_pos"][pos.long()].to(x.dtype)
+        x = x + _rows(params["dec_pos"],
+                      batch_like(pos, x) if is_sharded(x) else pos
+                      ).to(x.dtype)
 
         def dlayer(xx, pl_, c_l):
             xx, c_out = attn_block(cfg, pl_["attn"], xx, pos, c_l,
@@ -429,7 +502,7 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         outs = []
         for l, pl_ in enumerate(_layers(params["layers"], L)):
             if cache is None:
-                x = _body(lambda xx, pp=pl_: dlayer(xx, pp, None)[0], x,
+                x = _body(lambda xx, pp=pl_: sa(dlayer(xx, pp, None)[0]), x,
                           remat)
                 continue
             x, c_out = dlayer(x, pl_, (cache["k"][l], cache["v"][l], idx))

@@ -19,6 +19,7 @@ import math
 from typing import Any, Dict, Iterator, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +39,7 @@ class OptState(NamedTuple):
     mu: Any
     nu: Any
     step: torch.Tensor      # 0-d int32, on the parameters' device
+                            # (on a mesh a replicated DTensor)
 
 
 def tree_items(tree, path: Tuple[str, ...] = ()
@@ -53,23 +55,47 @@ def tree_items(tree, path: Tuple[str, ...] = ()
             yield path + (k,), v
 
 
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts of one structure, called in
-    ``tree_items``'s order."""
-    out = {}
-    for k in sorted(tree):
-        args = (tree[k], *(r[k] for r in rest))
-        out[k] = tree_map(fn, *args) if isinstance(tree[k], dict) \
-            else fn(*args)
-    return out
+def tree_map(fn, tree, *rest, is_leaf=None):
+    """``fn`` over the leaves of nested dicts, tuples, lists and named
+    tuples of one structure, a dict's in ``tree_items``'s order;
+    ``is_leaf`` stops the descent early."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        out = [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    return fn(tree, *rest)
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like(local: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``local`` as the block of a tensor placed as ``ref``."""
+    if not isinstance(ref, DTensor):
+        return local
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False, shape=ref.shape,
+                              stride=ref.stride())
 
 
 def init_opt(cfg: OptConfig, params) -> OptState:
     dt = getattr(torch, cfg.moment_dtype)
-    z = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
-    dev = next(tree_items(params))[1].device
-    return OptState(tree_map(z, params), tree_map(z, params),
-                    torch.zeros((), dtype=torch.int32, device=dev))
+    z = lambda p: _like(torch.zeros(_local(p).shape, dtype=dt,  # noqa: E731
+                                    device=p.device), p)
+    first = next(tree_items(params))[1]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if isinstance(first, DTensor):
+        mesh = first.device_mesh
+        step = DTensor.from_local(step, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return OptState(tree_map(z, params), tree_map(z, params), step)
 
 
 def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
@@ -83,10 +109,13 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 sum of squares."""
+    """sqrt of the sum of every leaf's float32 sum of squares (a DTensor
+    leaf's over all its shards); a plain 0-d tensor."""
     total = None
     for _, g in tree_items(tree):
         sq = torch.sum(g.to(torch.float32) ** 2)
+        if isinstance(sq, DTensor):
+            sq = sq.full_tensor()
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -97,16 +126,22 @@ def apply_updates(cfg: OptConfig, params, grads, st: OptState
     """One AdamW step: (new params, new state, global grad norm), all new
     tensors.  Weight decay applies to every leaf, as in the JAX
     package."""
-    step = st.step + 1
+    grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                     if isinstance(p, DTensor) else g, grads, params)
+    step_l = _local(st.step) + 1
     gn = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    lr = schedule(cfg, step)
+    lr = schedule(cfg, step_l)
     b1, b2 = cfg.b1, cfg.b2
-    sf = step.to(torch.float32)
+    sf = step_l.to(torch.float32)
     bc1 = 1 - torch.pow(b1, sf)
     bc2 = 1 - torch.pow(b2, sf)
 
     def upd(p, g, m, v):
+        return tuple(_like(o, r) for o, r in zip(
+            _upd(_local(p), _local(g), _local(m), _local(v)), (p, m, v)))
+
+    def _upd(p, g, m, v):
         g = g.to(torch.float32) * scale
         m32 = m.to(torch.float32) * b1 + (1 - b1) * g
         v32 = v.to(torch.float32) * b2 + (1 - b2) * g * g
@@ -118,6 +153,6 @@ def apply_updates(cfg: OptConfig, params, grads, st: OptState
         return newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
 
     out = tree_map(upd, params, grads, st.mu, st.nu)
-    pick = lambda i: tree_map(lambda t: t[i], out)
-    # tree_map stops at dicts, so the (p, m, v) tuples are its leaves
-    return pick(0), OptState(pick(1), pick(2), step), gn
+    pick = lambda i: tree_map(lambda t: t[i], out,
+                              is_leaf=lambda t: isinstance(t, tuple))
+    return pick(0), OptState(pick(1), pick(2), _like(step_l, st.step)), gn

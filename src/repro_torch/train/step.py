@@ -7,6 +7,12 @@ The train step takes its gradient through the einsum/blocked attention
 route (:func:`repro_torch.models.common.einsum_route`), as the JAX
 package trains through XLA attention: the flash kernel (K2) has no
 backward, and its wrapper refuses inputs that need a gradient.
+
+With a ``mesh`` the steps run SPMD on every rank of it: parameters and
+optimizer state are DTensors (``api.init_params(..., mesh=)``,
+``optim.init_opt``), a batch is whole arrays or DTensors, and the
+outputs are DTensors placed as the inputs (the loss, grad norm and step
+plain tensors, the same on every rank; the prefill's logits a DTensor).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from repro_torch.train.optim import (OptConfig, OptState, apply_updates,
                                      tree_items, tree_map)
 
 
-def value_and_grad(cfg: ModelConfig, params, batch, device=None
+def value_and_grad(cfg: ModelConfig, params, batch, device=None, mesh=None
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """(loss, gradient tree of ``params``), as ``jax.value_and_grad`` of
     the JAX package's train-step loss.  With ``cfg.cast_params_bf16`` the
@@ -36,13 +42,14 @@ def value_and_grad(cfg: ModelConfig, params, batch, device=None
             # gradient reduce-scatters at this boundary move bf16)
             used = tree_map(lambda p: p.to(torch.bfloat16)
                             if p.dtype == torch.float32 else p, leaves)
-        loss = api.loss_fn(cfg, used, batch, device=device)
+        loss = api.loss_fn(cfg, used, batch, device=device, mesh=mesh)
         grads = iter(torch.autograd.grad(
             loss, [p for _, p in tree_items(leaves)]))
     return loss.detach(), tree_map(lambda _: next(grads), leaves)
 
 
-def make_train_step(cfg: ModelConfig, opt: OptConfig, device=None):
+def make_train_step(cfg: ModelConfig, opt: OptConfig, device=None,
+                    mesh=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics), with
     ``metrics`` holding 0-d tensors ``loss``, ``grad_norm`` and ``step``.
     New tensors come out; the inputs stay as they were.  Runs on
@@ -50,7 +57,8 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, device=None):
     dev = resolve_device(device)
 
     def train_step(params, opt_state: OptState, batch: Dict[str, Any]):
-        loss, grads = value_and_grad(cfg, params, batch, device=dev)
+        loss, grads = value_and_grad(cfg, params, batch, device=dev,
+                                     mesh=mesh)
         params, opt_state, gnorm = apply_updates(opt, params, grads,
                                                  opt_state)
         metrics = {"loss": loss, "grad_norm": gnorm, "step": opt_state.step}
@@ -68,11 +76,13 @@ def make_serve_step(cfg: ModelConfig, device=None):
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig, device=None):
-    """Inference-prefill: full forward, no cache, returns last-token logits."""
+def make_prefill_step(cfg: ModelConfig, device=None, mesh=None):
+    """Inference-prefill: full forward, no cache, returns last-token logits
+    (B, vocab); on a mesh a DTensor, the vocabulary split as the head."""
 
     def prefill_step(params, batch):
-        logits, _ = api.forward_logits(cfg, params, batch, device=device)
+        logits, _ = api.forward_logits(cfg, params, batch, device=device,
+                                       mesh=mesh)
         return logits[:, -1]
 
     return prefill_step

@@ -402,3 +402,94 @@ def _dtypes(tree):
     if isinstance(tree, tuple):
         return [d for v in tree for d in _dtypes(v)]
     return [tree.dtype]
+
+
+def _sharded_lm_cfg():
+    """Reduced tinyllama with head_dim 64, which K2 takes (the reduced
+    config's 16 it does not)."""
+    return dataclasses.replace(registry.reduced("tinyllama-1.1b"),
+                               d_model=256, n_heads=4, n_kv_heads=2,
+                               d_head=64, compute_dtype="bfloat16")
+
+
+def sharded_prefill(shape):
+    """The prefill step on a mesh of gloo ranks sharing cuda:0: (last
+    token's logits whole, K2 launches on this rank, the largest |error|
+    of K2 against ``attention_ref`` on this rank's own inputs in a second
+    prefill)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import step
+    cfg = _sharded_lm_cfg()
+    mesh = make_mesh(shape, ("data", "model"))
+    params = api.init_params(cfg, 0, mesh=mesh)
+    batch = api.make_inputs(cfg, "prefill", 4, 256,
+                            np.random.default_rng(0))
+    prefill = step.make_prefill_step(cfg, mesh=mesh)
+    flash_attention.LAUNCHES.reset()
+    last = prefill(params, batch)
+    launches = flash_attention.LAUNCHES.n
+    own, errs = ops.attention, []
+
+    def checked(q, k, v, causal=True):
+        out = own(q, k, v, causal=causal)
+        want = attention_ref(q, k, v, causal=causal)
+        errs.append(float((out.float() - want.float()).abs().max()))
+        return out
+
+    ops.attention = checked
+    try:
+        prefill(params, batch)
+    finally:
+        ops.attention = own
+    assert len(errs) == cfg.n_layers
+    return last.full_tensor().float().cpu().numpy(), launches, max(errs)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4)])
+def test_sharded_prefill_on_gloo_ranks_sharing_the_card_equals_one_rank(
+        cuda, tmp_path, shape):
+    """Four gloo ranks on cuda:0 (DTensor's collectives staged through
+    host copies), K2 on each rank's local heads, against the one-device
+    prefill on the card (bf16, 3e-2), and each K2 call against
+    ``attention_ref`` on its own inputs (5e-2, as chip_smoke.py holds
+    K2 in bf16)."""
+    from repro_torch import dist as rdist
+    from repro_torch.train import step
+    cfg = _sharded_lm_cfg()
+    params = api.init_params(cfg, 0)
+    batch = api.make_inputs(cfg, "prefill", 4, 256,
+                            np.random.default_rng(0))
+    want = step.make_prefill_step(cfg)(params, batch).float().cpu().numpy()
+    got = rdist.spawn(sharded_prefill, 4, (shape,), device="cuda:0",
+                      backend="gloo", init_method=f"file://{tmp_path}/store",
+                      timeout_s=600)
+    for last, launches, k2_err in got:
+        assert launches == cfg.n_layers
+        assert k2_err < 5e-2
+        np.testing.assert_allclose(last, want, atol=3e-2, rtol=0)
+
+
+def unstaged_dtensor_gather():
+    """An all-gather of a DTensor on a CUDA mesh over gloo, without the
+    host staging of ``launch.mesh.make_mesh``."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = DeviceMesh("cuda", torch.arange(2))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = DTensor.from_local(torch.ones(4, device=dev), mesh, [Shard(0)],
+                           run_check=False)
+    return float(x.full_tensor().sum())
+
+
+def test_dtensor_gathers_crash_gloo_ranks_on_cuda(cuda, tmp_path):
+    """Why a CUDA mesh over gloo stages DTensor's collectives through
+    host copies (``dist.stage_through_host``): the functional all-gather
+    that DTensor calls kills the rank (SIGSEGV, torch 2.11); if a later
+    torch runs it, the staging can go."""
+    from repro_torch import dist as rdist
+    with pytest.raises(RuntimeError, match="rank"):
+        rdist.spawn(unstaged_dtensor_gather, 2, device="cuda:0",
+                    backend="gloo", init_method=f"file://{tmp_path}/store",
+                    timeout_s=120)

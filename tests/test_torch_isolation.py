@@ -55,7 +55,8 @@ def test_port_imports_no_jax_and_no_repro():
         "repro_torch.train.optim, repro_torch.train.data, "
         "repro_torch.train.checkpoint, repro_torch.train.loop, "
         "repro_torch.launch.train, repro_torch.models.costs, "
-        "repro_torch.core.sharded, repro_torch.dist\n"
+        "repro_torch.core.sharded, repro_torch.dist, "
+        "repro_torch.parallel.sharding, repro_torch.launch.mesh\n"
         "from repro_torch.configs import registry\n"
         "[registry.get(a) for a in registry.ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -173,6 +174,9 @@ def test_sharded_entry_points_need_a_gpu_unless_asked_for_the_cpu():
         init_rank()                   # a rank's default device is CUDA
     with pytest.raises(ValueError, match="nccl backend needs a CUDA"):
         init_rank("cpu", "nccl")
+    from repro_torch.launch.mesh import make_mesh
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh((1, 1), ("data", "model"))   # a mesh's default is CUDA
     # asked for the CPU, each runs there
     assert run_sharded(cfg, tr, (1, 1, 1), device="cpu")["finished"] == 1
     assert run_composed(spec, (1, 1, 1), device="cpu")[0]["finished"] == 1

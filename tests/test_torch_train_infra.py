@@ -271,7 +271,9 @@ def test_train_launcher_on_the_cpu(tmp_path):
 
 
 def test_train_launcher_has_one_device_only():
-    for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="item 5"):
+    """Without ranks to span it, the launcher trains on one device: a
+    production mesh raises, naming the world size it needs."""
+    for mesh, n in (("single", 256), ("multi", 512)):
+        with pytest.raises(RuntimeError, match=f"needs {n} ranks"):
             train_cli.main(["--arch", "tinyllama-1.1b", "--reduced",
                             "--mesh", mesh, "--device", "cpu"])
