@@ -93,10 +93,19 @@ caught:
    ``python -m repro_torch.launch.serve`` does by default; timed, and
    at reduced width its tokens equal the CPU run's;
 10. zoo-cli  — the launcher as a user runs it, in subprocesses started
-   together beside the plan phase: ``--zoo patterns-tiny`` on the card and with ``--device
+   together beside the plan phase: ``--zoo patterns-tiny:refs=4`` on the card and with ``--device
    cpu`` (all 10 scenarios finish, the payloads' statistics and plans
    equal), and ``--serial`` (the numpy golden model) against the card's
    solo run of the same flags.
+10b. dryrun  — the dry run (``repro_torch.launch.dryrun``: rank 0 of a
+   mesh on a fake process group, fake tensors, nothing on the card), in
+   subprocesses started with the script: the launcher for tinyllama-1.1b
+   ``train_4k`` and ``noc-sim noc_43k`` on the 256-rank production mesh,
+   and tinyllama-1.1b's B=4 S=2048 bf16 prefill on lm-sharded's (2, 2)
+   mesh; each record has its FLOPs, collective bytes by kind, memory a
+   rank and the analytic figures (those equal to ``models.costs``), and
+   is printed; lm-sharded holds its ranks' parameter bytes against the
+   last one's prediction.
 11. lm-train — LM training on the einsum attention route (K2 has no
    backward and is never launched by a train step): (a) tinyllama-1.1b
    at full width, float32 compute, B=1 S=128, one step's loss, grad norm
@@ -121,7 +130,7 @@ caught:
    32 and 12 times, the logits are finite, and every K2 launch agrees
    with ``attention_ref`` on its own inputs; timed and profiled; the
    kernel route against the einsum route, held in float32 and printed in
-   bf16; (c) 64 decode steps at B 4 (no K2 launch) against the
+   bf16; (c) 32 decode steps at B 4 (no K2 launch) against the
    cache-free forward of the same tokens, held in float32 (greedy
    agreement at least DECODE_AGREE, last logits within ROUTE_MAX/
    ROUTE_MEAN) and printed and timed in bf16; qwen2-moe's comparisons
@@ -129,6 +138,18 @@ caught:
    at a capacity that drops nothing; (d) the ``Server`` at the
    launcher's defaults.  K2 is also timed at their D-128 prefill shapes
    in phase 4.
+12b. lm-moe-train, lm-ssm-train, lm-hybrid-train, lm-vlm-train,
+   lm-audio-train — after each family's serving phase, its training at
+   the launcher's configuration, full width, the depth cut only where one
+   card's memory forces it (qwen2-moe-a2.7b to 2 of 24 layers,
+   llama-3.2-vision-11b to one cross-attention group of 5 of 40; the
+   others whole): (a) one float32 step on the card against the CPU, as
+   lm-train (a) (hymba's unread ``layers.mamba.ln`` exactly zero on
+   both; the moe router's choices on the card replayed on the CPU;
+   vlm's zero gates opened so its cross-attention carries gradient); (b)
+   bf16 steps at B=8 S=256 with remat, timed and profiled (ms a step,
+   tokens/s, MFU, peak memory, idle share, launches; K2 launches 0);
+   (c) for hymba, the reduced-width Trainer resumed bit for bit.
 11b. lm-sharded — after lm-train: tinyllama-1.1b at full width on a
    (2, 2) ("data", "model") device mesh of four gloo ranks sharing
    cuda:0 (DTensor; its collectives staged through host copies, since
@@ -142,9 +163,10 @@ caught:
    gathered gradient against the one-device step (the lm-train
    tolerances); (3) the step's parameters saved on (2, 2), restored on
    (1, 4) and on one rank, every leaf equal bit for bit, and the next
-   step's loss and grad norm on (1, 4) against one rank's.  Prints ms a
-   prefill and a step per rank: ranks time-sharing one card, not a
-   scaling result.
+   step's loss and grad norm on (1, 4) against one rank's; (4) each
+   rank's parameter bytes equal to the dry run's prediction for the same
+   mesh and prefill (10b).  Prints ms a prefill and a step per rank:
+   ranks time-sharing one card, not a scaling result.
 
 The two lines before the last are the card (as ``nvidia-smi`` gives it)
 and one JSON object with the three kernels' numbers (K1 alone, the fused
@@ -163,6 +185,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -275,8 +298,9 @@ LM_FAMILIES = (("lm-moe", "qwen2-moe-a2.7b", 24),
                ("lm-vlm", "llama-3.2-vision-11b", 32),
                ("lm-audio", "whisper-small", 12))
 #: the families' decode check: this many steps at B 4 against the
-#: cache-free forward of the same tokens
-FAMILY_DECODE = 64
+#: cache-free forward of the same tokens (64 until PR 20, cut to keep the
+#: phases inside the time limit on a slow host)
+FAMILY_DECODE = 32
 
 #: lm-train (a): full width, float32, card against CPU
 TRAIN_CMP_BATCH, TRAIN_CMP_SEQ = 1, 128
@@ -291,6 +315,22 @@ TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4, 1e-3
 TRAIN_STEPS, TRAIN_WARMUP = 8, 2
 #: lm-train (c): the reduced-width run and its interruption
 TRAIN_CLI_STEPS, TRAIN_CUT = 12, 6
+#: lm-<family>-train: the layers kept where one card's 80 GB forces a
+#: depth cut (full width always).  The timed step holds the float32
+#: parameters, their gradient, two moments and the new parameters and
+#: moments at once (36.6 B a parameter at tinyllama-1.1b, lm-train):
+#: qwen2-moe-a2.7b whole is 14.32 B parameters and llama-3.2-vision-11b
+#: 9.78 B, so the first keeps 2 of its 24 layers (all 60 experts top-4
+#: and the 4 shared: 1.76 B) and the second one cross-attention group of
+#: 5 of its 40 layers (2.14 B); mamba2-130m (0.17 B), hymba-1.5b (1.31 B)
+#: and whisper-small (0.36 B) train whole
+FAMILY_TRAIN_LAYERS = {"lm-moe": 2, "lm-vlm": 5}
+#: lm-<family>-train (b): steps timed after TRAIN_WARMUP warm-up steps
+FAMILY_TRAIN_STEPS = 5
+#: lm-<family>-train (a): vlm's tanh gates start at zero, which zeroes
+#: every gradient of its gated cross-attention blocks; the comparison
+#: opens them to this value
+VLM_GATE_OPEN = 0.5
 #: the H100's dense bf16 tensor-core peak (data sheet, 700 W)
 BF16_FLOPS_PER_S = 989e12
 
@@ -325,7 +365,17 @@ SHLM_AXES = ("data", "model")
 SHLM_BATCH, SHLM_SEQ = 8, 256
 #: seconds the group of ranks may take
 SHLM_TIMEOUT = 900
-ZOO_FAMILY = "patterns-tiny"
+#: the dry run's cells, run from the start by its launcher on the
+#: production mesh ("single", 256 fake ranks); and the cell of the
+#: lm-sharded phase, tinyllama-1.1b's bf16 prefill at B 4 x S 2048 on its
+#: (2, 2) mesh, whose predicted parameter bytes a rank must equal what
+#: each lm-sharded rank holds
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k"), ("noc-sim", "noc_43k"))
+DRYRUN_TIMEOUT = 900
+#: zoo-cli's family: patterns-tiny (10 scenarios at 4x4) with 4 refs a
+#: core, up to 394 cycles (12 refs until PR 20: 1,162 cycles, 161.5 s of
+#: the card's time, the longest phase)
+ZOO_FAMILY = "patterns-tiny:refs=4"
 SERIAL_FLAGS = ["--rows", "4", "--cols", "4", "--app", "matmul", "--refs",
                 "12"]
 #: seconds each launcher subprocess may take
@@ -622,16 +672,37 @@ def phase_kernel_phase2(dev):
     }
 
 
-def phase_wedge(dev) -> None:
-    import torch
+def wedge_case():
+    """The former S14 wedge: (config, trace)."""
     from repro_torch.core.config import SimConfig
-    from repro_torch.core.sim import run
     from repro_torch.core.workloads import app_trace_loop
-    from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
 
     cfg = SimConfig(rows=16, cols=16, centralized_directory=False,
                     max_cycles=200_000)
-    tr = app_trace_loop(cfg, "matmul", 20, 0)
+    return cfg, app_trace_loop(cfg, "matmul", 20, 0)
+
+
+def wedge_on_cpu(src: str):
+    """The wedge's CPU run (plain versions), in a child process started
+    with the script: (statistics, seconds)."""
+    sys.path.insert(0, src)
+    import torch
+    from repro_torch.core.sim import run
+
+    torch.set_num_threads(2)
+    cfg, tr = wedge_case()
+    t0 = time.perf_counter()
+    return run(cfg, tr, chunk=64, device="cpu"), time.perf_counter() - t0
+
+
+def phase_wedge(dev, cpu_run) -> None:
+    """The wedge on the card, against its CPU run (``cpu_run``, the
+    future of ``wedge_on_cpu``)."""
+    import torch
+    from repro_torch.core.sim import run
+    from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
+
+    cfg, tr = wedge_case()
     LAUNCHES.reset()
     ARB_LAUNCHES.reset()
     t0 = time.perf_counter()
@@ -648,9 +719,7 @@ def phase_wedge(dev) -> None:
     if ARB_LAUNCHES.n:
         fail(f"wedge launched the standalone arbitration {ARB_LAUNCHES.n} "
              f"times")
-    t0 = time.perf_counter()
-    cpu = run(cfg, tr, chunk=64, device="cpu")
-    cpu_wall = time.perf_counter() - t0
+    cpu, cpu_wall = cpu_run.result()
     if cpu != gpu:
         diff = {k: (cpu.get(k), gpu.get(k)) for k in set(cpu) | set(gpu)
                 if cpu.get(k) != gpu.get(k)}
@@ -659,7 +728,8 @@ def phase_wedge(dev) -> None:
           f"({gpu['send_drop']} drops recovered), card stats == CPU stats; "
           f"fused Phase-2 launches {launches}, standalone arbitration "
           f"{ARB_LAUNCHES.n}; card {wall:.3f} s "
-          f"({gpu['cycles'] / wall:.1f} cycles/s), CPU {cpu_wall:.3f} s")
+          f"({gpu['cycles'] / wall:.1f} cycles/s), CPU {cpu_wall:.3f} s "
+          f"(two threads, in a child process beside the earlier phases)")
 
 
 def phase_paper(dev):
@@ -1746,9 +1816,15 @@ def phase_lm_family(dev, name: str, arch: str, k2_want: int) -> int:
     return launches
 
 
-def _train_grads_card_vs_cpu(dev, cfg, params) -> None:
-    """lm-train (a): one float32 step's loss, grad norm and gradients at
-    full width, on the card and on the CPU."""
+def _train_grads_card_vs_cpu(dev, cfg, params, name: str = "lm-train",
+                             arch: str = LM_ARCH) -> None:
+    """lm-train (a), and (a) of each lm-<family>-train: one float32
+    step's loss, grad norm and gradients at full width, on the card and
+    on the CPU.  A leaf whose gradient is zero on the CPU (hymba's
+    unread ``layers.mamba.ln``) must be exactly zero on the card.  The
+    moe family's router choices on the card are replayed on the CPU
+    (``PinnedRouting``), and the token-layers whose own choice differs
+    are counted and printed."""
     import torch
     from repro_torch.train import optim, step
     from repro_torch.train.data import DataConfig, DataSource, DataState
@@ -1757,42 +1833,70 @@ def _train_grads_card_vs_cpu(dev, cfg, params) -> None:
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     batch = DataSource(DataConfig(batch=TRAIN_CMP_BATCH, seq=TRAIN_CMP_SEQ),
                        cfg32).batch_at(DataState(0))
+    pin = PinnedRouting() if cfg.family == "moe" else None
     t0 = time.perf_counter()
-    loss_d, g_d = step.value_and_grad(cfg32, params, batch)
+    with pin if pin is not None else contextlib.nullcontext():
+        loss_d, g_d = step.value_and_grad(cfg32, params, batch)
     gn_d = float(optim.global_norm(g_d))
     loss_d = float(loss_d)
     card_s = time.perf_counter() - t0
     on_cpu = optim.tree_map(lambda t: t.cpu(), params)
     t0 = time.perf_counter()
-    loss_h, g_h = step.value_and_grad(cfg32, on_cpu, batch, device="cpu")
+    if pin is not None:
+        pin.replay = lambda i, shape: pin.recorded[i].cpu()
+    with pin if pin is not None else contextlib.nullcontext():
+        loss_h, g_h = step.value_and_grad(cfg32, on_cpu, batch,
+                                          device="cpu")
     gn_h = float(optim.global_norm(g_h))
     loss_h = float(loss_h)
     cpu_s = time.perf_counter() - t0
+    del on_cpu
     if not (abs(loss_d - loss_h) <= TRAIN_LOSS_RTOL * abs(loss_h) and
             abs(gn_d - gn_h) <= TRAIN_GNORM_RTOL * gn_h):
-        fail(f"lm-train: full-width float32 step, card loss {loss_d} grad "
+        fail(f"{name}: full-width float32 step, card loss {loss_d} grad "
              f"norm {gn_d}, CPU {loss_h}, {gn_h}")
-    worst = 0.0
+    worst, zero = 0.0, []
     for (path, a), (_, b) in zip(optim.tree_items(g_d),
                                  optim.tree_items(g_h)):
-        rel = float((a.cpu() - b).abs().max() / b.abs().max())
+        scale = float(b.abs().max())
+        if scale == 0.0:
+            if bool(torch.any(a)):
+                fail(f"{name}: gradient of {'.'.join(path)} is zero on the "
+                     f"CPU and not on the card")
+            zero.append(".".join(path))
+            continue
+        rel = float((a.cpu() - b).abs().max()) / scale
         if not rel <= TRAIN_GRAD_RTOL:
-            fail(f"lm-train: gradient of {'.'.join(path)}: card vs CPU max "
+            fail(f"{name}: gradient of {'.'.join(path)}: card vs CPU max "
                  f"|diff| {rel} of its max (tolerance {TRAIN_GRAD_RTOL})")
         worst = max(worst, rel)
-    print(f"lm-train: {LM_ARCH} full width, float32, B={TRAIN_CMP_BATCH} "
-          f"S={TRAIN_CMP_SEQ}, one step on the card ({card_s:.3f} s, first "
-          f"call) vs the CPU ({cpu_s:.1f} s, {torch.get_num_threads()} "
-          f"threads): loss {loss_d!r} vs {loss_h!r} (rel "
-          f"{abs(loss_d - loss_h) / loss_h:.3e}), grad norm {gn_d!r} vs "
-          f"{gn_h!r} (rel {abs(gn_d - gn_h) / gn_h:.3e}), worst leaf "
-          f"gradient max |diff| / max {worst:.3e} over "
-          f"{sum(1 for _ in optim.tree_items(g_d))} leaves (tolerances "
-          f"{TRAIN_LOSS_RTOL}, {TRAIN_GNORM_RTOL}, {TRAIN_GRAD_RTOL})")
+    if cfg.family == "hybrid" and "layers.mamba.ln" not in zero:
+        fail(f"{name}: the unread layers.mamba.ln has a gradient; zero "
+             f"leaves {zero}")
+    routing = ""
+    if pin is not None:
+        routing = (f"; the card's router choices replayed on the CPU, whose "
+                   f"own choice differs on {pin.changed} of {pin.total} "
+                   f"token-layers")
+    print(f"{name}: {arch} full width ({cfg.n_layers} layers), float32, "
+          f"B={TRAIN_CMP_BATCH} S={TRAIN_CMP_SEQ}, one step on the card "
+          f"({card_s:.3f} s, first call) vs the CPU ({cpu_s:.1f} s, "
+          f"{torch.get_num_threads()} threads): loss {loss_d!r} vs "
+          f"{loss_h!r} (rel {abs(loss_d - loss_h) / loss_h:.3e}), grad norm "
+          f"{gn_d!r} vs {gn_h!r} (rel {abs(gn_d - gn_h) / gn_h:.3e}), worst "
+          f"leaf gradient max |diff| / max {worst:.3e} over "
+          f"{sum(1 for _ in optim.tree_items(g_d))} leaves, zero on both "
+          f"{zero} (tolerances {TRAIN_LOSS_RTOL}, {TRAIN_GNORM_RTOL}, "
+          f"{TRAIN_GRAD_RTOL}){routing}")
 
 
-def _train_timed(dev, cfg, params) -> None:
-    """lm-train (b): the launcher's defaults at full width, timed."""
+def _train_timed(dev, cfg, params, name: str = "lm-train",
+                 arch: str = LM_ARCH, layers=None,
+                 steps: int = TRAIN_STEPS, halves: bool = True) -> None:
+    """lm-train (b), and (b) of each lm-<family>-train: the launcher's
+    defaults at full width (``layers`` kept where the family's depth is
+    cut), ``steps`` steps timed after TRAIN_WARMUP; with ``halves`` the
+    gradient and AdamW halves are profiled apart."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import LAUNCHES
@@ -1806,77 +1910,95 @@ def _train_timed(dev, cfg, params) -> None:
     # the configurations the launcher trains with by default (building the
     # Trainer allocates nothing)
     dflt = train_cli.build_trainer(train_cli.build_parser().parse_args(
-        ["--arch", LM_ARCH]))
-    if dflt.mcfg != cfg:
-        fail(f"lm-train: the launcher's model config {dflt.mcfg} is not "
-             f"the one the phases share, {cfg}")
+        ["--arch", arch]))
+    want = dflt.mcfg if layers is None else dataclasses.replace(
+        dflt.mcfg, n_layers=layers)
+    if want != cfg:
+        fail(f"{name}: the launcher's model config {want} is not the one "
+             f"the phase trains, {cfg}")
     opt, batch_n, seq = dflt.ocfg, dflt.dcfg.batch, dflt.dcfg.seq
     data = DataSource(dflt.dcfg, cfg)
     fn = step.make_train_step(cfg, opt)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    state = {"p": params, "o": optim.init_opt(opt, params), "i": 0}
+    # each step's batch is drawn before its clock starts, as the Trainer
+    # times its steps: vlm's stub image tokens alone are 52.5 M normal
+    # draws a batch on the host
+    state = {"p": params, "o": optim.init_opt(opt, params), "i": 0,
+             "b": data.batch_at(DataState(0))}
 
     def one():
-        batch = data.batch_at(DataState(state["i"]))
-        state["p"], state["o"], m = fn(state["p"], state["o"], batch)
+        state["p"], state["o"], m = fn(state["p"], state["o"], state["b"])
         state["i"] += 1
         return m
 
     LAUNCHES.reset()
-    losses, times = [], []
-    for _ in range(TRAIN_STEPS):
+    losses, times, draws = [], [], []
+    for _ in range(steps):
         t0 = time.perf_counter()
+        state["b"] = data.batch_at(DataState(state["i"]))
+        t1 = time.perf_counter()
         m = one()
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+        times.append((time.perf_counter() - t1) * 1e3)
+        draws.append((t1 - t0) * 1e3)
         losses.append(float(m["loss"]))
     k2 = LAUNCHES.n
     peak = torch.cuda.max_memory_allocated()
     if k2 != 0:
-        fail(f"lm-train: the train steps launched K2 {k2} times")
+        fail(f"{name}: the train steps launched K2 {k2} times")
     if not all(np.isfinite(losses)):
-        fail(f"lm-train: losses {losses}")
-    ms = sum(times[TRAIN_WARMUP:]) / (TRAIN_STEPS - TRAIN_WARMUP)
+        fail(f"{name}: losses {losses}")
+    ms = sum(times[TRAIN_WARMUP:]) / (steps - TRAIN_WARMUP)
     flops = costs.cell_flops(cfg, "train", batch_n, seq)
-    print(f"lm-train: {LM_ARCH} full width, bf16 compute, remat "
-          f"{cfg.remat}, B={batch_n} S={seq}, {TRAIN_STEPS} steps "
-          f"through make_train_step: losses {[round(x, 4) for x in losses]}; "
-          f"K2 launches {k2}")
-    print(f"lm-train: step ms {[round(t, 3) for t in times]}; {ms:.3f} ms a "
+    mfu = flops / (ms / 1e3) / BF16_FLOPS_PER_S
+    print(f"{name}: {arch} full width, {cfg.n_layers} layers, bf16 "
+          f"compute, remat {cfg.remat}, B={batch_n} S={seq}, {steps} steps "
+          f"through make_train_step: losses "
+          f"{[round(x, 4) for x in losses]}; K2 launches {k2}")
+    print(f"{name}: step ms {[round(t, 3) for t in times]}; {ms:.3f} ms a "
           f"step after {TRAIN_WARMUP} warm-up steps, "
           f"{batch_n * seq / ms * 1e3:.1f} tokens/s, "
           f"{flops:.4e} FLOP a step (models.costs.cell_flops), MFU "
-          f"{flops / (ms / 1e3) / BF16_FLOPS_PER_S:.4f} of "
-          f"{BF16_FLOPS_PER_S:.0f} FLOP/s; peak device memory {peak} B "
-          f"({held} B held before the steps)")
+          f"{mfu:.4f} of {BF16_FLOPS_PER_S:.0f} FLOP/s; peak device memory "
+          f"{peak} B ({held} B held before the steps); the batches drawn "
+          f"on the host apart, {sum(draws) / steps:.3f} ms a batch; card: "
+          f"{card_line()}")
     wall, kern = device_profile(one, 1)
     busy = sum(v[0] for v in kern.values())
-    print(f"lm-train profile: one step, wall {wall:.3f} ms (under the "
+    launches = sum(v[1] for v in kern.values())
+    print(f"{name} profile: one step, wall {wall:.3f} ms (under the "
           f"profiler), device busy {busy:.3f} ms (idle share "
-          f"{1 - busy / wall:.4f}), "
-          f"{sum(v[1] for v in kern.values())} kernel launches")
-    for name, (t, count) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]:
-        print(f"lm-train profile:   {t:.3f} ms  {count}x  {name[:90]}")
-    # the step's two halves apart: the gradient, and AdamW on it
-    batch = data.batch_at(DataState(0))
-    _, grads = step.value_and_grad(cfg, state["p"], batch)
-    for what, fn in (("value_and_grad", lambda: step.value_and_grad(
-            cfg, state["p"], batch)),
-                     ("apply_updates", lambda: optim.apply_updates(
-                         opt, state["p"], grads, state["o"]))):
-        ms_call = event_ms(fn, 3)
-        wall, kern = device_profile(fn, 1)
-        busy = sum(v[0] for v in kern.values())
-        print(f"lm-train profile: {what} alone: {ms_call:.3f} ms a call "
-              f"(CUDA events), device busy {busy:.3f} ms, "
-              f"{sum(v[1] for v in kern.values())} kernel launches, idle "
-              f"share {1 - busy / wall:.4f} (under the profiler)")
+          f"{1 - busy / wall:.4f}), {launches} kernel launches")
+    for kname, (t, count) in sorted(kern.items(),
+                                    key=lambda kv: -kv[1][0])[:8]:
+        print(f"{name} profile:   {t:.3f} ms  {count}x  {kname[:90]}")
+    if halves:
+        # the step's two halves apart: the gradient, and AdamW on it
+        batch = data.batch_at(DataState(0))
+        _, grads = step.value_and_grad(cfg, state["p"], batch)
+        for what, fn in (("value_and_grad", lambda: step.value_and_grad(
+                cfg, state["p"], batch)),
+                         ("apply_updates", lambda: optim.apply_updates(
+                             opt, state["p"], grads, state["o"]))):
+            ms_call = event_ms(fn, 3)
+            wall_h, kern_h = device_profile(fn, 1)
+            busy_h = sum(v[0] for v in kern_h.values())
+            print(f"{name} profile: {what} alone: {ms_call:.3f} ms a call "
+                  f"(CUDA events), device busy {busy_h:.3f} ms, "
+                  f"{sum(v[1] for v in kern_h.values())} kernel launches, "
+                  f"idle share {1 - busy_h / wall_h:.4f} (under the "
+                  f"profiler)")
+    del state
 
 
-def _train_reduced(dev) -> None:
-    """lm-train (c): restart-exactness and the launcher, reduced width."""
+def _train_reduced(dev, arch: str = LM_ARCH, name: str = "lm-train",
+                   launcher: bool = True) -> None:
+    """lm-train (c), and (c) of lm-hybrid-train: at reduced width, the
+    Trainer checkpointed at TRAIN_CUT and resumed to TRAIN_CLI_STEPS
+    against an uninterrupted run, bit for bit; with ``launcher`` also
+    the train launcher in a subprocess, ending at the same loss."""
     import ast
     import tempfile
 
@@ -1886,7 +2008,7 @@ def _train_reduced(dev) -> None:
     from repro_torch.train.optim import tree_items
 
     with tempfile.TemporaryDirectory() as tmp:
-        flags = ["--arch", LM_ARCH, "--reduced", "--steps",
+        flags = ["--arch", arch, "--reduced", "--steps",
                  str(TRAIN_CLI_STEPS)]
         whole = train_cli.build_trainer(train_cli.build_parser().parse_args(
             flags + ["--ckpt-dir", os.path.join(tmp, "whole")]))
@@ -1899,44 +2021,90 @@ def _train_reduced(dev) -> None:
         resumed = cut(TRAIN_CLI_STEPS, True, 1000)
         resumed.run()
         if resumed.metrics_log[0]["step"] != TRAIN_CUT:
-            fail(f"lm-train: the resumed run began at step "
+            fail(f"{name}: the resumed run began at step "
                  f"{resumed.metrics_log[0]['step']}, not {TRAIN_CUT}")
+        n = 0
         for tree_a, tree_b in ((whole.params, resumed.params),
                                (whole.opt_state._asdict(),
                                 resumed.opt_state._asdict())):
             for (path, a), (_, b) in zip(tree_items(tree_a),
                                          tree_items(tree_b)):
+                n += 1
                 if not torch.equal(a, b):
-                    fail(f"lm-train: resumed {'.'.join(path)} differs from "
+                    fail(f"{name}: resumed {'.'.join(path)} differs from "
                          f"the uninterrupted run's by "
                          f"{float((a.float() - b.float()).abs().max())}")
         first = whole.metrics_log[0]["loss"]
         final = whole.metrics_log[-1]["loss"]
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", *flags,
-             "--ckpt-dir", os.path.join(tmp, "cli")], cwd=ROOT, env=env,
-            capture_output=True, text=True, timeout=CLI_TIMEOUT)
-        if proc.returncode != 0:
-            fail(f"lm-train: the launcher exited {proc.returncode}: "
-                 f"{proc.stderr[-2000:]}")
-        done = proc.stdout.strip().splitlines()[-1]
-        out = ast.literal_eval(done.split("[train] done: ", 1)[1])
-        if out["final_loss"] != final or not final < first or \
-                out["steps"] != TRAIN_CLI_STEPS:
-            fail(f"lm-train: launcher {done!r}; in-process first loss "
-                 f"{first!r}, final {final!r}")
-    print(f"lm-train: reduced width on the card: checkpointed at step "
-          f"{TRAIN_CUT} and resumed to {TRAIN_CLI_STEPS}, parameters and "
-          f"optimizer state equal the uninterrupted run's bit for bit; "
-          f"the launcher ({done}) ends at the in-process loss {final!r}, "
-          f"below the first {first!r}")
+        done = ""
+        if launcher:
+            env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", *flags,
+                 "--ckpt-dir", os.path.join(tmp, "cli")], cwd=ROOT, env=env,
+                capture_output=True, text=True, timeout=CLI_TIMEOUT)
+            if proc.returncode != 0:
+                fail(f"{name}: the launcher exited {proc.returncode}: "
+                     f"{proc.stderr[-2000:]}")
+            done = proc.stdout.strip().splitlines()[-1]
+            out = ast.literal_eval(done.split("[train] done: ", 1)[1])
+            if out["final_loss"] != final or not final < first or \
+                    out["steps"] != TRAIN_CLI_STEPS:
+                fail(f"{name}: launcher {done!r}; in-process first loss "
+                     f"{first!r}, final {final!r}")
+            done = f"; the launcher ({done}) ends at the in-process loss"
+    print(f"{name}: {arch} at reduced width on the card: checkpointed at "
+          f"step {TRAIN_CUT} and resumed to {TRAIN_CLI_STEPS}, parameters "
+          f"and optimizer state ({n} leaves) equal the uninterrupted run's "
+          f"bit for bit{done}; losses {first!r} -> {final!r}")
 
 
 def phase_lm_train(dev, cfg, params) -> None:
     _train_grads_card_vs_cpu(dev, cfg, params)
     _train_timed(dev, cfg, params)
     _train_reduced(dev)
+
+
+def phase_lm_family_train(dev, name: str, arch: str) -> None:
+    """lm-<family>-train, after the family's serving phase (one model on
+    the card at a time): the launcher's configuration of ``arch`` at
+    full width, its depth cut to FAMILY_TRAIN_LAYERS where one card
+    forces it, from the port's seeded init: (a) one float32 step on the
+    card against the CPU; (b) FAMILY_TRAIN_STEPS bf16 steps at the
+    launcher's defaults, timed and profiled; (c) for the hybrid family,
+    whose tree holds the leaf no forward reads, the reduced-width
+    Trainer resumed bit for bit.  Frees the model."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import api
+
+    whole = registry.get(arch)
+    layers = FAMILY_TRAIN_LAYERS.get(name)
+    cfg = whole if layers is None else dataclasses.replace(whole,
+                                                           n_layers=layers)
+    cut = "no depth cut" if layers is None else \
+        f"depth cut to {layers} of {whole.n_layers} layers"
+    params = api.init_params(cfg, 0)                  # default: cuda
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"{name}-train: {arch} full width (d {cfg.d_model}, vocab "
+          f"{cfg.vocab}), {cut}: {n} parameters; device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if cfg.family == "vlm":
+        for t in (params["xlayers"]["xattn"]["gate"],
+                  params["xlayers"]["gate_mlp"]):
+            t.fill_(VLM_GATE_OPEN)
+        print(f"{name}-train: the gates of the cross-attention blocks "
+              f"opened to {VLM_GATE_OPEN} (they start at zero, which "
+              f"zeroes the blocks' gradients)")
+    _train_grads_card_vs_cpu(dev, cfg, params, f"{name}-train", arch)
+    torch.cuda.empty_cache()
+    _train_timed(dev, cfg, params, f"{name}-train", arch, layers,
+                 FAMILY_TRAIN_STEPS, halves=False)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if cfg.family == "hybrid":
+        _train_reduced(dev, arch, f"{name}-train", launcher=False)
 
 
 def lm_sharded_rank(root: str) -> dict:
@@ -1994,6 +2162,8 @@ def lm_sharded_rank(root: str) -> dict:
                                                            mesh=mesh))
     wq = params["layers"]["attn"]["wq"]
     out["wq"] = (str(wq.placements), tuple(wq.to_local().shape))
+    # the bytes of this rank's blocks, against the dry run's prediction
+    out["param_bytes"] = sum(t.to_local().nbytes for t in _leaves(params))
     note("parameters placed")
 
     # (1) the prefill, bf16, K2 on each rank's local heads
@@ -2105,9 +2275,12 @@ def lm_sharded_rank(root: str) -> dict:
     return out
 
 
-def phase_lm_sharded() -> list:
+def phase_lm_sharded(dry: dict) -> list:
     """lm-sharded: tinyllama-1.1b at full width over four gloo ranks
-    sharing cuda:0; returns K2's launches in the prefill, by rank."""
+    sharing cuda:0; returns K2's launches in the prefill, by rank.  Each
+    rank's parameter bytes must equal the dry run's prediction for the
+    same mesh and prefill (``dry``, its record: ``mem.argument`` less the
+    inputs)."""
     import tempfile
     from repro_torch.dist import spawn
 
@@ -2131,6 +2304,15 @@ def phase_lm_sharded() -> list:
                  f"{K2_TOL['bfloat16']})")
         if not o["finite"]:
             fail("lm-sharded: the sharded prefill's logits are not finite")
+    predicted = dry["mem"]["argument"] - dry["argument_parts"]["inputs"]
+    held = [o["param_bytes"] for o in outs]
+    if any(h != predicted for h in held):
+        fail(f"lm-sharded: the ranks hold {held} bytes of parameters, the "
+             f"dry run of the same mesh and prefill predicts {predicted}")
+    print(f"lm-sharded: parameter bytes a rank {held}, equal to the dry "
+          f"run's prediction for the {SHLM_MESH} mesh ({predicted} = "
+          f"mem.argument {dry['mem']['argument']} less the inputs "
+          f"{dry['argument_parts']['inputs']})")
     print(f"lm-sharded: {LM_ARCH} full width on a {SHLM_MESH} mesh over "
           f"{SHLM_AXES}, {SHLM_RANKS} gloo ranks sharing cuda:0 (DTensor's "
           f"collectives staged through host copies); wq on each rank "
@@ -2188,6 +2370,102 @@ def phase_lm_sharded() -> list:
 #: payload keys that only the port prints, or that measure the host
 CLI_OWN_KEYS = ("wall_s", "scenarios_per_sec", "device",
                 "arbitration_kernel_launches")
+
+
+#: the lm-sharded cell of the dry run, in a subprocess: its record on the
+#: line that starts "RECORD "
+DRYRUN_SHARDED = (
+    "import json\n"
+    "from repro_torch.configs.shapes import ShapeSpec\n"
+    "from repro_torch.launch import dryrun\n"
+    "rec = dryrun.lm_cell(%r, ShapeSpec('lm-sharded', %d, %d, 'prefill'), "
+    "(%r, %r))\n"
+    "print('RECORD ' + json.dumps(rec))\n")
+
+
+def start_dryrun(out: str) -> dict:
+    """Start the dry run's subprocesses (no card: a fake process group
+    and fake tensors on the host): the launcher for each of DRYRUN_CELLS
+    on the production mesh, writing its record under ``out``, and the
+    lm-sharded cell."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    runs = {f"{a} {s}": ["-m", "repro_torch.launch.dryrun", "--arch", a,
+                         "--shape", s, "--mesh", "single", "--out", out]
+            for a, s in DRYRUN_CELLS}
+    runs["lm-sharded"] = ["-c", DRYRUN_SHARDED % (
+        LM_ARCH, PREFILL_SEQ, PREFILL_BATCH, SHLM_MESH, SHLM_AXES)]
+    procs = {}
+    try:
+        for name, args in runs.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, *args], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    except BaseException:
+        stop(procs)
+        raise
+    return procs
+
+
+def phase_dryrun(procs: dict, t0: float, out: str) -> dict:
+    """Wait for the dry run's subprocesses (started at ``t0``) and check
+    their records: every key the JAX package's record has that carries
+    (``flops``, ``collective_bytes``, ``mem``, the analytic figures),
+    collectives of the kinds the cell must run, and the analytic FLOPs
+    of ``models.costs``.  Prints each record; returns the lm-sharded
+    cell's."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.models import costs
+
+    recs = {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            fail(f"dryrun: {name} ran past {DRYRUN_TIMEOUT} s")
+        if proc.returncode != 0:
+            fail(f"dryrun: {name} exited {proc.returncode}: "
+                 f"{stderr[-2000:]}")
+        if name == "lm-sharded":
+            line = [x for x in stdout.splitlines()
+                    if x.startswith("RECORD ")][-1]
+            recs[name] = json.loads(line[len("RECORD "):])
+        else:
+            arch, shape = name.split()
+            with open(os.path.join(out, f"{arch}__{shape}__single.json")) as f:
+                recs[name] = json.load(f)
+        print(f"dryrun: {name} done {time.perf_counter() - t0:.1f} s after "
+              f"the start: {json.dumps(recs[name], sort_keys=True)}")
+    for name, rec in recs.items():
+        if "error" in rec or not all(k in rec for k in (
+                "flops", "collective_bytes", "mem", "devices")) or \
+                set(rec["mem"]) != {"argument", "temp", "output"} or \
+                not min(rec["mem"].values()) > 0:
+            fail(f"dryrun: {name}: record {rec}")
+        kinds = ("collective-permute", "all-reduce") if rec["kind"] == "sim" \
+            else ("all-gather", "reduce-scatter")
+        if not all(rec["collective_bytes"].get(k, 0) > 0 for k in kinds):
+            fail(f"dryrun: {name}: no {kinds} in {rec['collective_bytes']}")
+        if rec["kind"] == "sim":
+            continue
+        cfg = registry.get(rec["arch"])
+        shp = SHAPES.get(rec["shape"])
+        b, s = (shp.global_batch, shp.seq_len) if shp is not None else \
+            (PREFILL_BATCH, PREFILL_SEQ)
+        want = costs.cell_flops(cfg, rec["kind"], b, s)
+        if rec["analytic_flops_global"] != want or not rec["flops"] > 0 \
+                or rec["n_params"] != cfg.n_params():
+            fail(f"dryrun: {name}: analytic FLOPs "
+                 f"{rec['analytic_flops_global']} (models.costs: {want}), "
+                 f"flops {rec['flops']}, n_params {rec['n_params']}")
+        print(f"dryrun: {name}: rank 0 counts {rec['flops']:.4e} FLOP, "
+              f"{rec['flops'] * rec['devices'] / want:.3f} times the "
+              f"analytic count's share over {rec['devices']} ranks; "
+              f"argument {rec['mem']['argument']} B, temp "
+              f"{rec['mem']['temp']} B, output {rec['mem']['output']} B a "
+              f"rank; traced in {rec['trace_s']} s")
+    return recs["lm-sharded"]
 
 
 def stop(procs: dict) -> None:
@@ -2293,11 +2571,33 @@ def main() -> None:
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})")
 
+    # work for the host alone runs beside the phases from the start: the
+    # wedge's CPU run and the dry run's subprocesses
+    import multiprocessing
+    t_start = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool, \
+            tempfile.TemporaryDirectory() as out:
+        dry = {}
+        try:
+            wedge_cpu = pool.submit(wedge_on_cpu, src)
+            dry = start_dryrun(out)
+            run_phases(dev, card, wedge_cpu, (dry, t_start, out))
+        finally:
+            stop(dry)
+
+
+def run_phases(dev, card: str, wedge_cpu, dryrun) -> None:
+    """Every phase in order, then the kernels line and the last line.
+    ``wedge_cpu`` is the future of the wedge's CPU run, ``dryrun`` the dry
+    run's subprocesses, their start and their output directory."""
+    import torch
+
     timed("build", phase_build)
     rec_k1 = timed("kernel", phase_kernel, dev)
     rec_p2 = timed("kernel-phase2", phase_kernel_phase2, dev)
     rec_k2 = timed("kernel-K2", phase_kernel_k2, dev)
-    timed("wedge", phase_wedge, dev)
+    timed("wedge", phase_wedge, dev, wedge_cpu)
     paper_launches, rec_k1["launches"], paper_ms = timed(
         "paper", phase_paper, dev)
     sweep_launches, sweep_got = timed("sweep-208", phase_sweep, dev,
@@ -2312,6 +2612,7 @@ def main() -> None:
         timed("zoo-cli", phase_zoo_cli, zoo, t_zoo)
     finally:
         stop(zoo)
+    dry_sharded = timed("dryrun", phase_dryrun, *dryrun)
     # the fused kernel's main paths: paper-208's run, the sweep's and the
     # sharded runs' (every rank's)
     rec_p2["launches"] = paper_launches + sweep_launches + sharded_launches
@@ -2326,11 +2627,12 @@ def main() -> None:
     timed("lm-train", phase_lm_train, dev, cfg, params)
     del params
     torch.cuda.empty_cache()
-    sharded_k2 = timed("lm-sharded", phase_lm_sharded)
+    sharded_k2 = timed("lm-sharded", phase_lm_sharded, dry_sharded)
     family_launches = 0
     for name, arch, k2_want in LM_FAMILIES:
         family_launches += timed(name, phase_lm_family, dev, name, arch,
                                  k2_want)
+        timed(f"{name}-train", phase_lm_family_train, dev, name, arch)
     print(f"launches: flash_attention {rec_k2['launches']} (tinyllama "
           f"prefill) + {sum(sharded_k2)} (the sharded prefill, by rank "
           f"{sharded_k2}) + {family_launches} (the other families' "

@@ -493,3 +493,57 @@ def test_dtensor_gathers_crash_gloo_ranks_on_cuda(cuda, tmp_path):
         rdist.spawn(unstaged_dtensor_gather, 2, device="cuda:0",
                     backend="gloo", init_method=f"file://{tmp_path}/store",
                     timeout_s=120)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-130m",
+                                  "hymba-1.5b", "llama-3.2-vision-11b",
+                                  "whisper-small"])
+def test_family_train_step_on_the_card_equals_the_cpu_run(cuda, arch):
+    """One float32 ``value_and_grad`` of each non-dense family, reduced,
+    B 2 x S 32 (the train step takes the einsum route): loss within 1e-5
+    relative, every gradient within 1e-4 of its leaf's largest
+    |gradient| (``tests/test_torch_train.py``'s tolerances against JAX);
+    hymba's unread ``layers.mamba.ln`` exactly zero on both."""
+    from repro_torch.train import optim, step
+    from repro_torch.train.data import DataConfig, DataSource, DataState
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.reduced(arch),
+                              compute_dtype="float32")
+    params = api.init_params(cfg, 0, device="cpu")
+    on_card = convert.params_from_numpy(convert.params_to_numpy(params),
+                                        cuda, cfg)
+    batch = DataSource(DataConfig(batch=2, seq=32), cfg).batch_at(
+        DataState(0))
+    flash_attention.LAUNCHES.reset()
+    lw, gw = step.value_and_grad(cfg, params, batch, device="cpu")
+    lg, gg = step.value_and_grad(cfg, on_card, batch)
+    assert flash_attention.LAUNCHES.n == 0
+    assert abs(float(lg) - float(lw)) <= 1e-5 * abs(float(lw))
+    for (path, a), (_, b) in zip(optim.tree_items(gw),
+                                 optim.tree_items(gg)):
+        assert b.is_cuda and b.dtype == a.dtype, path
+        scale = float(a.abs().max())
+        assert float((b.cpu() - a).abs().max()) <= 1e-4 * scale, path
+    if cfg.family == "hybrid":
+        ln = gg["layers"]["mamba"]["ln"]
+        assert not torch.any(ln) and ln.is_cuda
+
+
+def test_dry_run_fake_group_runs_with_the_cards_torch(cuda):
+    """The dry run's fake process group, fake tensors and meters import
+    and run with this machine's torch: a reduced train cell on (2, 2)
+    and a simulator tile, nothing placed on the card."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    # the peak from here on: the dry run frees the simulator's cached
+    # tables (on the card too), and must allocate nothing there
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rec = dryrun.lm_cell("tinyllama-1.1b", ShapeSpec("x", 128, 4, "train"),
+                         ((2, 2), ("data", "model")),
+                         cfg=registry.reduced("tinyllama-1.1b"))
+    assert rec["mem"]["argument"] == sum(rec["argument_parts"].values())
+    assert rec["flops"] > 0 and rec["collective_bytes"]["all-gather"] > 0
+    noc = dryrun.noc_cell("noc_43k")
+    assert noc["collective_bytes"]["collective-permute"] > 0
+    assert torch.cuda.max_memory_allocated() == before

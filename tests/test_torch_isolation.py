@@ -56,7 +56,8 @@ def test_port_imports_no_jax_and_no_repro():
         "repro_torch.train.checkpoint, repro_torch.train.loop, "
         "repro_torch.launch.train, repro_torch.models.costs, "
         "repro_torch.core.sharded, repro_torch.dist, "
-        "repro_torch.parallel.sharding, repro_torch.launch.mesh\n"
+        "repro_torch.parallel.sharding, repro_torch.launch.mesh, "
+        "repro_torch.configs.shapes, repro_torch.launch.dryrun\n"
         "from repro_torch.configs import registry\n"
         "[registry.get(a) for a in registry.ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -65,6 +66,26 @@ def test_port_imports_no_jax_and_no_repro():
     out = _py("-c", code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_dry_run_runs_a_cell_without_jax():
+    """The dry run imports and runs (fake group, fake tensors, meters)
+    with neither JAX nor ``repro`` in the process."""
+    code = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "from repro_torch.configs import registry\n"
+        "from repro_torch.configs.shapes import ShapeSpec\n"
+        "from repro_torch.launch import dryrun\n"
+        "rec = dryrun.lm_cell('qwen2-moe-a2.7b', ShapeSpec('x', 32, 4, "
+        "'train'), ((2, 2), ('data', 'model')), "
+        "cfg=registry.reduced('qwen2-moe-a2.7b'))\n"
+        "assert rec['flops'] > 0 and rec['mem']['argument'] > 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n" % SRC)
+    out = _py("-c", code)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
 def test_core_package_import_stays_light():

@@ -87,8 +87,8 @@ def lm_cases(cases, batches):
 
 def forward_cases(cases, batches):
     """For each (mesh shape, family): the sharded forward's logits and
-    loss, whole (the hybrid family's tree has a leaf its forward never
-    reads, so it has no gradient on one device either)."""
+    loss, whole (the hybrid family's gradients on a mesh are
+    ``grad_cases``', in ``tests/test_torch_train_families.py``)."""
     out = {}
     for shape, fam in cases:
         mesh = make_mesh(shape, AXES, device="cpu")
@@ -189,4 +189,64 @@ def run(cases, fwd_cases, batches, root):
            "trainer": trainer_restarts(root)}
     # last: it reroutes this process's collectives for good
     out["staged"] = staged_collectives()
+    return out if dist.get_rank() == 0 else None
+
+
+def grad_cases(cases, batches):
+    """For each (mesh shape, family): the loss and every gradient of
+    ``step.value_and_grad`` on the first batch, whole (numpy), with each
+    gradient's placements and its parameter's."""
+    out = {}
+    for shape, fam in cases:
+        mesh = make_mesh(shape, AXES, device="cpu")
+        cfg = config(fam)
+        params = api.init_params(cfg, 0, "cpu", mesh=mesh)
+        loss, grads = step.value_and_grad(cfg, params, batches[fam][0],
+                                          device="cpu", mesh=mesh)
+        out[(shape, fam)] = {
+            "loss": float(loss), "grads": _full(grads),
+            "placed": {"/".join(k): (str(g.placements),
+                                     str(p.placements))
+                       for (k, g), (_, p) in zip(optim.tree_items(grads),
+                                                 optim.tree_items(params))}}
+    return out
+
+
+def serve_cases(cases, tokens, cache_len):
+    """For each (mesh shape, family): ``len(tokens[0])`` data-parallel
+    decode steps of ``make_serve_step(mesh=)`` from a zeroed cache placed
+    by ``cache_pspecs``: each step's logits, whole (numpy), and the final
+    cache's leaves whole with their placements."""
+    from repro_torch.parallel.sharding import resolve_pspec, placements
+    out = {}
+    for shape, fam in cases:
+        mesh = make_mesh(shape, AXES, device="cpu")
+        cfg = config(fam)
+        params = api.init_params(cfg, 0, "cpu", mesh=mesh)
+        b = tokens.shape[0]
+        cache = optim.tree_map(
+            lambda c, s: distribute(c, mesh, placements(
+                resolve_pspec(s, mesh, c.shape), mesh)),
+            api.init_cache(cfg, b, cache_len, "cpu"),
+            api.cache_pspecs(cfg, b, cache_len),
+            is_leaf=lambda x: isinstance(x, torch.Tensor))
+        fn = step.make_serve_step(cfg, "cpu", mesh)
+        logits = []
+        for t in range(tokens.shape[1]):
+            lg, cache = fn(params, cache, tokens[:, t:t + 1])
+            logits.append(lg.full_tensor().numpy())
+        leaves = []
+        optim.tree_map(lambda c: leaves.append(
+            (c.full_tensor().numpy(), str(c.placements))), cache)
+        out[(shape, fam)] = {"logits": np.stack(logits, 1),
+                             "cache": leaves}
+    return out
+
+
+def run_grads(cases, batches, serve, tokens, cache_len):
+    """``grad_cases`` and ``serve_cases`` in one group of ranks; rank
+    0's results come back."""
+    torch.manual_seed(0)
+    out = {"grads": grad_cases(cases, batches),
+           "serve": serve_cases(serve, tokens, cache_len)}
     return out if dist.get_rank() == 0 else None
