@@ -12,8 +12,9 @@ caught:
    (the router kernels and K2) with ``nvcc`` for ``sm_90a``, one ``nvcc``
    per source, started together; prints ptxas's register/spill report;
 3. kernel    — K1 (router arbitration alone) against its plain PyTorch
-   version on the card, bit-exact on seeded cases (n = 1..400,
-   127/128/129 and the 208x208 mesh's 43,264 routers); both timed at
+   version, bit-exact on seeded cases (n = 1..400, 127/128/129 and the
+   208x208 mesh's 43,264 routers: every case launched on the card, one
+   synchronise, the plain version run on CPU copies); both timed at
    43,264 (device time from ``torch.profiler``, and per call with CUDA
    events);
 3b. kernel-phase2 — K1's redesign, the fused Phase-2 router kernel, which
@@ -97,15 +98,23 @@ caught:
    cpu`` (all 10 scenarios finish, the payloads' statistics and plans
    equal), and ``--serial`` (the numpy golden model) against the card's
    solo run of the same flags.
+10a. drivers — beside zoo-cli, the drivers as a user runs them on the
+   card: ``examples/quickstart_torch.py`` (8x8, ``matmul``, 60 refs,
+   seed 1: the simulator's statistics identical to the serial model's)
+   and ``examples/serve_lm_torch.py`` (reduced tinyllama, 4 slots, 10
+   requests served).
 10b. dryrun  — the dry run (``repro_torch.launch.dryrun``: rank 0 of a
    mesh on a fake process group, fake tensors, nothing on the card), in
    subprocesses started with the script: the launcher for tinyllama-1.1b
    ``train_4k`` and ``noc-sim noc_43k`` on the 256-rank production mesh,
-   and tinyllama-1.1b's B=4 S=2048 bf16 prefill on lm-sharded's (2, 2)
-   mesh; each record has its FLOPs, collective bytes by kind, memory a
-   rank and the analytic figures (those equal to ``models.costs``), and
-   is printed; lm-sharded holds its ranks' parameter bytes against the
-   last one's prediction.
+   tinyllama-1.1b's B=4 S=2048 bf16 prefill and its B=4 decode step
+   (a 64-slot cache) on lm-sharded's (2, 2) mesh, and its B=1 S=4096
+   train step on one device; each record has its FLOPs, collective
+   bytes by kind, memory a rank and the analytic figures (those equal to
+   ``models.costs``), and is printed; lm-sharded holds its ranks'
+   parameter bytes and what they hold for a decode step against the
+   (2, 2) predictions, lm-train (d) prints its peak memory beside the
+   one-device prediction.
 11. lm-train — LM training on the einsum attention route (K2 has no
    backward and is never launched by a train step): (a) tinyllama-1.1b
    at full width, float32 compute, B=1 S=128, one step's loss, grad norm
@@ -119,7 +128,12 @@ caught:
    resumed to 12 equals an uninterrupted 12-step run bit for bit, and
    ``python -m repro_torch.launch.train --arch tinyllama-1.1b --reduced
    --steps 12`` in a subprocess ends at the same loss, lower than the
-   first.
+   first; (d) one bf16 step at full width, B=1 S=4096, past
+   ``BLOCK_THRESHOLD`` (the blocked attention, each query and key chunk
+   recomputed in the backward): a finite loss, its ms and the peak
+   device memory beside the dry run's one-device prediction (10b), and
+   its loss and grad norm against the einsum route's (the whole scores
+   at once) on the same batch (LONG_LOSS_RTOL, LONG_GNORM_RTOL).
 12. lm-moe, lm-ssm, lm-hybrid, lm-vlm, lm-audio — the other LM families,
    each at the full width of one published config (qwen2-moe-a2.7b,
    mamba2-130m, hymba-1.5b, llama-3.2-vision-11b, whisper-small) from the
@@ -165,7 +179,14 @@ caught:
    (1, 4) and on one rank, every leaf equal bit for bit, and the next
    step's loss and grad norm on (1, 4) against one rank's; (4) each
    rank's parameter bytes equal to the dry run's prediction for the same
-   mesh and prefill (10b).  Prints ms a prefill and a step per rank:
+   mesh and prefill (10b).  Between (1) and (2), (1b): 3 bf16 decode
+   steps at B=4 from a zeroed 64-slot cache, the weights left split as
+   ``param_pspecs`` places them and the cache as ``cache_pspecs`` does:
+   each rank's logits against one device's decode on rank 0
+   (ROUTE_MAX/ROUTE_MEAN), ms a step by rank, the all-gathers of the last
+   step (in the dry run's meter) beside the dry run's, and each rank's
+   parameters, cache and tokens equal to the dry run's decode
+   prediction (10b).  Prints ms a prefill and a step per rank:
    ranks time-sharing one card, not a scaling result.
 
 The two lines before the last are the card (as ``nvidia-smi`` gives it)
@@ -363,6 +384,15 @@ SHLM_MESH, SHLM_REMESH, SHLM_RANKS = (2, 2), (1, 4), 4
 SHLM_AXES = ("data", "model")
 #: the float32 train step's batch
 SHLM_BATCH, SHLM_SEQ = 8, 256
+#: lm-train (d)'s sequence at B 1: past BLOCK_THRESHOLD (2048 * 2048)
+LONG_SEQ = 4096
+#: lm-train (d): the blocked step's loss and grad norm against the einsum
+#: route's on the same batch, relative (bf16 compute; the two sum the
+#: scores' softmax in another order, both in float32)
+LONG_LOSS_RTOL, LONG_GNORM_RTOL = 1e-2, 5e-2
+#: the decode steps on the mesh (B = PREFILL_BATCH), from a zeroed cache
+#: of SHLM_CACHE slots
+SHLM_DECODE, SHLM_CACHE = 3, 64
 #: seconds the group of ranks may take
 SHLM_TIMEOUT = 900
 #: the dry run's cells, run from the start by its launcher on the
@@ -464,21 +494,30 @@ def phase_kernel(dev):
         arrs = random_arb_case(np.random.default_rng(seed), n)
         return [torch.from_numpy(a).to(dev) for a in arrs]
 
+    # every case is launched before the one synchronise; the plain
+    # version runs on the CPU copies of the same inputs
     sizes = list(range(1, 401)) + [127, 128, 129, 43_264]
-    max_err = 0
+    got, want = [], []
     for seed, n in enumerate(sizes):
-        args = case(seed, n)
-        got_a, got_d = router_arbitrate_cuda(*args)
-        ref_a, ref_d = arbitrate_ref(*args)
-        torch.cuda.synchronize()
-        err = max(int((got_a - ref_a).abs().max()),
-                  int((got_d != ref_d).sum()))
+        arrs = random_arb_case(np.random.default_rng(seed), n)
+        host = [torch.from_numpy(a) for a in arrs]
+        got.append(router_arbitrate_cuda(*[t.to(dev) for t in host]))
+        want.append(arbitrate_ref(*host))
+    got_a = torch.cat([a for a, _ in got]).cpu()
+    got_d = torch.cat([d for _, d in got]).cpu()
+    ref_a = torch.cat([a for a, _ in want])
+    ref_d = torch.cat([d for _, d in want])
+    max_err = 0
+    for n, a, d, ra, rd in zip(sizes, got_a.split(sizes), got_d.split(sizes),
+                               ref_a.split(sizes), ref_d.split(sizes)):
+        err = max(int((a - ra).abs().max()), int((d != rd).sum()))
         if err:
             fail(f"kernel disagrees with arbitrate_ref at n={n} "
                  f"(max abs err {err})")
         max_err = max(max_err, err)
     print(f"kernel: router_arbitrate bit-exact against arbitrate_ref on "
-          f"{len(sizes)} cases (n = 1..400, 127, 128, 129, 43264)")
+          f"{len(sizes)} cases (n = 1..400, 127, 128, 129, 43264; the plain "
+          f"version on CPU copies)")
 
     n = 43_264
     args = case(12345, n)
@@ -2059,9 +2098,83 @@ def _train_reduced(dev, arch: str = LM_ARCH, name: str = "lm-train",
           f"bit for bit{done}; losses {first!r} -> {final!r}")
 
 
-def phase_lm_train(dev, cfg, params) -> None:
+def _train_long(dev, cfg, params, rec: dict) -> None:
+    """lm-train (d): a bf16 step at B 1 x S LONG_SEQ, past
+    ``BLOCK_THRESHOLD``: the blocked attention, each query and key chunk
+    recomputed in the backward.  Prints its peak device memory and ms
+    beside the dry run's prediction for the same cell on one device
+    (``rec``: its argument and temp bytes; temp counts the step's
+    outputs).  Then holds the step's loss and grad norm against those of
+    the einsum route (the whole (S, S) scores at once, BLOCK_THRESHOLD
+    lifted) on the same batch: a chunk dropped or a recompute in another
+    route would move them."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import common
+    from repro_torch.train import optim, step
+    from repro_torch.train.data import DataConfig, DataSource, DataState
+
+    if not LONG_SEQ * LONG_SEQ > common.BLOCK_THRESHOLD:
+        fail(f"lm-train (d): S {LONG_SEQ} does not take the blocked path")
+    opt = train_cli.build_trainer(train_cli.build_parser().parse_args(
+        ["--arch", LM_ARCH])).ocfg
+    batch = DataSource(DataConfig(batch=1, seq=LONG_SEQ),
+                       cfg).batch_at(DataState(0))
+    fn = step.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # what the card holds besides this cell's parameters
+    other = torch.cuda.memory_allocated() - sum(
+        t.nbytes for t in _leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    o = optim.init_opt(opt, params)
+    t0 = time.perf_counter()
+    p1, o1, m = fn(params, o, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    loss = float(m["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    gnorm = float(m["grad_norm"])
+    del p1, o1, o
+    if not np.isfinite(loss):
+        fail(f"lm-train (d): loss {loss}")
+    threshold = common.BLOCK_THRESHOLD
+    common.BLOCK_THRESHOLD = LONG_SEQ * LONG_SEQ
+    try:
+        ref_loss, grads = step.value_and_grad(cfg, params, batch)
+        ref_gnorm = float(optim.global_norm(grads))
+        ref_loss = float(ref_loss)
+    finally:
+        common.BLOCK_THRESHOLD = threshold
+    del grads
+    torch.cuda.empty_cache()
+    errs = (abs(loss - ref_loss) / abs(ref_loss),
+            abs(gnorm - ref_gnorm) / ref_gnorm)
+    if not (errs[0] <= LONG_LOSS_RTOL and errs[1] <= LONG_GNORM_RTOL):
+        fail(f"lm-train (d): the blocked step's loss {loss} and grad norm "
+             f"{gnorm} against the einsum route's {ref_loss}, {ref_gnorm}: "
+             f"relative {errs} (tolerances {LONG_LOSS_RTOL}, "
+             f"{LONG_GNORM_RTOL})")
+    want = rec["mem"]["argument"] + rec["mem"]["temp"]
+    print(f"lm-train (d): {LM_ARCH} full width, bf16 compute, remat "
+          f"{cfg.remat}, B=1 S={LONG_SEQ} (the blocked attention, a "
+          f"checkpoint per query and key chunk): loss {loss}, grad norm "
+          f"{gnorm}; the einsum route on the same batch {ref_loss}, "
+          f"{ref_gnorm} (relative {errs[0]:.3e}, {errs[1]:.3e}; tolerances "
+          f"{LONG_LOSS_RTOL}, {LONG_GNORM_RTOL}); one step "
+          f"{step_ms:.3f} ms (the first at this shape, with the allocator's "
+          f"warm-up); peak device memory {peak} B, {peak - other} B without "
+          f"the {other} B the card held besides the parameters; the dry "
+          f"run's one-device prediction, argument {rec['mem']['argument']} "
+          f"+ temp {rec['mem']['temp']} = {want} B ({(peak - other) / want:.4f} "
+          f"times it); card: {card_line()}")
+
+
+def phase_lm_train(dev, cfg, params, long_rec: dict) -> None:
     _train_grads_card_vs_cpu(dev, cfg, params)
     _train_timed(dev, cfg, params)
+    _train_long(dev, cfg, params, long_rec)
     _train_reduced(dev)
 
 
@@ -2122,8 +2235,8 @@ def lm_sharded_rank(root: str) -> dict:
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import api
-    from repro_torch.parallel.sharding import P, NamedSharding, \
-        tree_shardings
+    from repro_torch.parallel.sharding import (P, distribute, placements,
+                                               resolve_pspec, tree_shardings)
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import optim, step
     from repro_torch.train.data import DataConfig, DataSource, DataState
@@ -2180,6 +2293,7 @@ def lm_sharded_rank(root: str) -> dict:
     last = last.full_tensor().float()
     out["finite"] = bool(torch.isfinite(last).all())
     note(f"prefill {out['prefill_ms']:.1f} ms")
+    one = None
     if r == 0:
         one = api.init_params(cfg, 0)
         ref = step.make_prefill_step(cfg)(one, batch).float()
@@ -2187,8 +2301,53 @@ def lm_sharded_rank(root: str) -> dict:
         out["prefill_mean"] = float((last - ref).abs().mean())
         out["prefill_agree"] = float((last.argmax(-1) == ref.argmax(-1))
                                      .float().mean())
-        del one, ref
+        del ref
     free()
+
+    # (1b) decode steps on the mesh, the weights left split as their specs
+    # place them and the cache as cache_pspecs places it; rank 0 decodes
+    # the same tokens on one device
+    from repro_torch.launch.dryrun import Meter
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab, (PREFILL_BATCH, SHLM_DECODE)).astype(np.int32)
+    cache = optim.tree_map(lambda c, sp: distribute(c, mesh, placements(
+        resolve_pspec(sp, mesh, c.shape), mesh)),
+        api.init_cache(cfg, PREFILL_BATCH, SHLM_CACHE),
+        api.cache_pspecs(cfg, PREFILL_BATCH, SHLM_CACHE),
+        is_leaf=lambda x: isinstance(x, torch.Tensor))
+    tok_pl = placements(resolve_pspec(P(api.DP, None), mesh,
+                                      (PREFILL_BATCH, 1)), mesh)
+    col = lambda t: distribute(torch.as_tensor(  # noqa: E731
+        toks[:, t:t + 1], device=dev), mesh, tok_pl)
+    # what the rank holds for a step: the dry run's decode argument bytes
+    out["decode_held"] = out["param_bytes"] + sum(
+        c.to_local().nbytes for c in _leaves(cache)) + \
+        col(0).to_local().nbytes
+    serve = step.make_serve_step(cfg, mesh=mesh)
+    logits, ms = [], []
+    for t in range(SHLM_DECODE):
+        # the last step runs in the dry run's meter: its collectives
+        last_step = t == SHLM_DECODE - 1
+        meter = Meter()
+        with meter if last_step else contextlib.nullcontext():
+            (lg, cache), t_ms = clock(lambda: serve(params, cache, col(t)))
+        logits.append(lg.full_tensor().float().cpu().numpy())
+        ms.append(t_ms)
+        if last_step:
+            out["decode_gather_max"] = meter.largest.get("all-gather", 0)
+            out["decode_gather"] = meter.collectives.get("all-gather", 0)
+    out["decode_ms"], out["decode_logits"] = ms, np.stack(logits, 1)
+    if r == 0:
+        c1 = api.init_cache(cfg, PREFILL_BATCH, SHLM_CACHE)
+        ref = []
+        for t in range(SHLM_DECODE):
+            lg, c1 = api.decode_step(cfg, one, c1, toks[:, t:t + 1])
+            ref.append(lg.float().cpu().numpy())
+        out["decode_ref"] = np.stack(ref, 1)
+        del c1
+    del cache, one
+    free()
+    note(f"{SHLM_DECODE} decode steps, ms {[round(x, 1) for x in ms]}")
 
     # (2) one float32 train step at the launcher's optimizer defaults
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -2279,9 +2438,12 @@ def phase_lm_sharded(dry: dict) -> list:
     """lm-sharded: tinyllama-1.1b at full width over four gloo ranks
     sharing cuda:0; returns K2's launches in the prefill, by rank.  Each
     rank's parameter bytes must equal the dry run's prediction for the
-    same mesh and prefill (``dry``, its record: ``mem.argument`` less the
-    inputs)."""
+    same mesh and prefill (``dry["lm-sharded"]``: ``mem.argument`` less
+    the inputs), and what it holds for a decode step the prediction for
+    the same mesh and decode (``dry["lm-sharded-decode"]``)."""
     import tempfile
+
+    import numpy as np
     from repro_torch.dist import spawn
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2304,15 +2466,45 @@ def phase_lm_sharded(dry: dict) -> list:
                  f"{K2_TOL['bfloat16']})")
         if not o["finite"]:
             fail("lm-sharded: the sharded prefill's logits are not finite")
-    predicted = dry["mem"]["argument"] - dry["argument_parts"]["inputs"]
+    pre = dry["lm-sharded"]
+    predicted = pre["mem"]["argument"] - pre["argument_parts"]["inputs"]
     held = [o["param_bytes"] for o in outs]
     if any(h != predicted for h in held):
         fail(f"lm-sharded: the ranks hold {held} bytes of parameters, the "
              f"dry run of the same mesh and prefill predicts {predicted}")
     print(f"lm-sharded: parameter bytes a rank {held}, equal to the dry "
           f"run's prediction for the {SHLM_MESH} mesh ({predicted} = "
-          f"mem.argument {dry['mem']['argument']} less the inputs "
-          f"{dry['argument_parts']['inputs']})")
+          f"mem.argument {pre['mem']['argument']} less the inputs "
+          f"{pre['argument_parts']['inputs']})")
+    dec = dry["lm-sharded-decode"]
+    held = [o["decode_held"] for o in outs]
+    if any(h != dec["mem"]["argument"] for h in held):
+        fail(f"lm-sharded: a decode step's parameters, cache and tokens "
+             f"come to {held} bytes on the ranks, the dry run of the same "
+             f"mesh and decode predicts {dec['mem']['argument']}")
+    ref = o0["decode_ref"]
+    errs = [(float(np.abs(o["decode_logits"] - ref).max()),
+             float(np.abs(o["decode_logits"] - ref).mean())) for o in outs]
+    if not all(e <= ROUTE_MAX["bfloat16"] and m <= ROUTE_MEAN["bfloat16"]
+               for e, m in errs):
+        fail(f"lm-sharded: mesh decode vs one device, max and mean |err| "
+             f"by rank {errs} (tolerances {ROUTE_MAX['bfloat16']}, "
+             f"{ROUTE_MEAN['bfloat16']})")
+    print(f"lm-sharded (1b): {SHLM_DECODE} bf16 decode steps at "
+          f"B={PREFILL_BATCH}, cache_len {SHLM_CACHE}, the weights left "
+          f"split on the mesh: logits vs one device's decode, max |err| by "
+          f"rank {[format(e, '.4e') for e, _ in errs]}, mean "
+          f"{[format(m, '.4e') for _, m in errs]} (tolerances "
+          f"{ROUTE_MAX['bfloat16']}, {ROUTE_MEAN['bfloat16']}); ms a step "
+          f"by rank {[[round(x, 1) for x in o['decode_ms']] for o in outs]} "
+          f"(the first call, a step, the last in the dry run's meter); "
+          f"the metered step's all-gathers on rank 0: "
+          f"{o0['decode_gather']} B, the largest {o0['decode_gather_max']} "
+          f"B (the dry run predicts "
+          f"{dec['collective_bytes'].get('all-gather', 0)} and "
+          f"{dec['collective_max_bytes'].get('all-gather', 0)} B); "
+          f"parameters, cache and tokens a rank {held} B, equal to the dry "
+          f"run's prediction {dec['mem']['argument']}; card: {card_line()}")
     print(f"lm-sharded: {LM_ARCH} full width on a {SHLM_MESH} mesh over "
           f"{SHLM_AXES}, {SHLM_RANKS} gloo ranks sharing cuda:0 (DTensor's "
           f"collectives staged through host copies); wq on each rank "
@@ -2372,29 +2564,40 @@ CLI_OWN_KEYS = ("wall_s", "scenarios_per_sec", "device",
                 "arbitration_kernel_launches")
 
 
-#: the lm-sharded cell of the dry run, in a subprocess: its record on the
+#: a dry-run cell of its own shape, in a subprocess: its record on the
 #: line that starts "RECORD "
-DRYRUN_SHARDED = (
+DRYRUN_CELL = (
     "import json\n"
     "from repro_torch.configs.shapes import ShapeSpec\n"
     "from repro_torch.launch import dryrun\n"
-    "rec = dryrun.lm_cell(%r, ShapeSpec('lm-sharded', %d, %d, 'prefill'), "
-    "(%r, %r))\n"
+    "rec = dryrun.lm_cell(%r, ShapeSpec(%r, %d, %d, %r), %r)\n"
     "print('RECORD ' + json.dumps(rec))\n")
+
+
+def dryrun_cells() -> dict:
+    """name -> (kind, seq, batch, mesh) of the dry-run cells the phases
+    hold their cards against: lm-sharded's prefill and decode on its
+    (2, 2) mesh, and lm-train's step at B 1 x S 4096 on one device (no
+    mesh)."""
+    mesh = (SHLM_MESH, SHLM_AXES)
+    return {"lm-sharded": ("prefill", PREFILL_SEQ, PREFILL_BATCH, mesh),
+            "lm-sharded-decode": ("decode", SHLM_CACHE, PREFILL_BATCH, mesh),
+            "lm-train-4k": ("train", LONG_SEQ, 1, None)}
 
 
 def start_dryrun(out: str) -> dict:
     """Start the dry run's subprocesses (no card: a fake process group
     and fake tensors on the host): the launcher for each of DRYRUN_CELLS
     on the production mesh, writing its record under ``out``, and the
-    lm-sharded cell."""
+    cells of ``dryrun_cells()``."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                OMP_NUM_THREADS="1")
     runs = {f"{a} {s}": ["-m", "repro_torch.launch.dryrun", "--arch", a,
                          "--shape", s, "--mesh", "single", "--out", out]
             for a, s in DRYRUN_CELLS}
-    runs["lm-sharded"] = ["-c", DRYRUN_SHARDED % (
-        LM_ARCH, PREFILL_SEQ, PREFILL_BATCH, SHLM_MESH, SHLM_AXES)]
+    for name, (kind, seq, batch, mesh) in dryrun_cells().items():
+        runs[name] = ["-c", DRYRUN_CELL % (LM_ARCH, name, seq, batch, kind,
+                                           mesh)]
     procs = {}
     try:
         for name, args in runs.items():
@@ -2411,9 +2614,9 @@ def phase_dryrun(procs: dict, t0: float, out: str) -> dict:
     """Wait for the dry run's subprocesses (started at ``t0``) and check
     their records: every key the JAX package's record has that carries
     (``flops``, ``collective_bytes``, ``mem``, the analytic figures),
-    collectives of the kinds the cell must run, and the analytic FLOPs
-    of ``models.costs``.  Prints each record; returns the lm-sharded
-    cell's."""
+    collectives of the kinds the cell must run (none on one device), and
+    the analytic FLOPs of ``models.costs``.  Prints each record; returns
+    the records of ``dryrun_cells()`` by name."""
     from repro_torch.configs import registry
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.models import costs
@@ -2427,7 +2630,7 @@ def phase_dryrun(procs: dict, t0: float, out: str) -> dict:
         if proc.returncode != 0:
             fail(f"dryrun: {name} exited {proc.returncode}: "
                  f"{stderr[-2000:]}")
-        if name == "lm-sharded":
+        if name in dryrun_cells():
             line = [x for x in stdout.splitlines()
                     if x.startswith("RECORD ")][-1]
             recs[name] = json.loads(line[len("RECORD "):])
@@ -2443,16 +2646,25 @@ def phase_dryrun(procs: dict, t0: float, out: str) -> dict:
                 set(rec["mem"]) != {"argument", "temp", "output"} or \
                 not min(rec["mem"].values()) > 0:
             fail(f"dryrun: {name}: record {rec}")
-        kinds = ("collective-permute", "all-reduce") if rec["kind"] == "sim" \
-            else ("all-gather", "reduce-scatter")
+        # a simulator tile trades halos and reduces its flags; an LM step
+        # gathers its weights over the data axes and, but for a decode
+        # step, reduce-scatters the gradients or sequence back; one
+        # device runs no collective
+        kinds = {"sim": ("collective-permute", "all-reduce"),
+                 "decode": ("all-gather",)}.get(
+            rec["kind"], ("all-gather", "reduce-scatter"))
+        if rec["devices"] == 1:
+            kinds = ()
         if not all(rec["collective_bytes"].get(k, 0) > 0 for k in kinds):
             fail(f"dryrun: {name}: no {kinds} in {rec['collective_bytes']}")
         if rec["kind"] == "sim":
             continue
         cfg = registry.get(rec["arch"])
         shp = SHAPES.get(rec["shape"])
-        b, s = (shp.global_batch, shp.seq_len) if shp is not None else \
-            (PREFILL_BATCH, PREFILL_SEQ)
+        if shp is not None:
+            b, s = shp.global_batch, shp.seq_len
+        else:
+            _, s, b, _ = dryrun_cells()[name]
         want = costs.cell_flops(cfg, rec["kind"], b, s)
         if rec["analytic_flops_global"] != want or not rec["flops"] > 0 \
                 or rec["n_params"] != cfg.n_params():
@@ -2465,7 +2677,7 @@ def phase_dryrun(procs: dict, t0: float, out: str) -> dict:
               f"argument {rec['mem']['argument']} B, temp "
               f"{rec['mem']['temp']} B, output {rec['mem']['output']} B a "
               f"rank; traced in {rec['trace_s']} s")
-    return recs["lm-sharded"]
+    return {name: recs[name] for name in dryrun_cells()}
 
 
 def stop(procs: dict) -> None:
@@ -2549,6 +2761,49 @@ def phase_zoo_cli(procs: dict, t0: float) -> None:
           f"{serial['wall_s']} s, card {solo['wall_s']} s")
 
 
+#: the drivers outside the package, run on the card as a user runs them
+DRIVERS = {"quickstart": ("examples/quickstart_torch.py",
+                          "identical statistics: True"),
+           "serve_lm": ("examples/serve_lm_torch.py",
+                        "served 10 requests with continuous batching on "
+                        "cuda")}
+
+
+def start_drivers() -> dict:
+    """Start the drivers' subprocesses on the card (beside zoo-cli's)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    procs = {}
+    try:
+        for name, (path, _) in DRIVERS.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, path)], cwd=ROOT,
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+    except BaseException:
+        stop(procs)
+        raise
+    return procs
+
+
+def phase_drivers(procs: dict, t0: float) -> None:
+    """Wait for the drivers (started at ``t0``): the quickstart's
+    simulator on the card must give the serial model's statistics, the
+    server must answer its 10 requests."""
+    for name, proc in procs.items():
+        path, want = DRIVERS[name]
+        try:
+            stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            fail(f"drivers: {path} ran past {CLI_TIMEOUT} s")
+        if proc.returncode != 0 or want not in stdout:
+            fail(f"drivers: {path} exited {proc.returncode} without "
+                 f"{want!r}: {stdout[-1500:]} {stderr[-1500:]}")
+        tail = [x.strip() for x in stdout.splitlines() if x.strip()]
+        print(f"drivers: {path} done {time.perf_counter() - t0:.1f} s after "
+              f"the start: {' | '.join(tail[-3:] if name == 'serve_lm' else tail)}")
+
+
 def timed(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2603,16 +2858,18 @@ def run_phases(dev, card: str, wedge_cpu, dryrun) -> None:
     sweep_launches, sweep_got = timed("sweep-208", phase_sweep, dev,
                                       paper_ms)
     sharded_launches = timed("sharded", phase_sharded, sweep_got)
-    # zoo-cli's subprocesses run beside the plan phase (neither is timed
-    # for a claim); both end before the timed LM phases
+    # zoo-cli's and the drivers' subprocesses run beside the plan phase
+    # (none is timed for a claim); all end before the timed LM phases
     t_zoo = time.perf_counter()
-    zoo = start_zoo_cli()
+    zoo, drivers = start_zoo_cli(), start_drivers()
     try:
         plan_launches = timed("plan", phase_plan, dev)
         timed("zoo-cli", phase_zoo_cli, zoo, t_zoo)
+        timed("drivers", phase_drivers, drivers, t_zoo)
     finally:
         stop(zoo)
-    dry_sharded = timed("dryrun", phase_dryrun, *dryrun)
+        stop(drivers)
+    dry = timed("dryrun", phase_dryrun, *dryrun)
     # the fused kernel's main paths: paper-208's run, the sweep's and the
     # sharded runs' (every rank's)
     rec_p2["launches"] = paper_launches + sweep_launches + sharded_launches
@@ -2624,10 +2881,10 @@ def run_phases(dev, card: str, wedge_cpu, dryrun) -> None:
                                             dev)
     timed("lm-decode", phase_lm_decode, dev, cfg, params)
     timed("lm-serve", phase_lm_serve, dev, cfg, params)
-    timed("lm-train", phase_lm_train, dev, cfg, params)
+    timed("lm-train", phase_lm_train, dev, cfg, params, dry["lm-train-4k"])
     del params
     torch.cuda.empty_cache()
-    sharded_k2 = timed("lm-sharded", phase_lm_sharded, dry_sharded)
+    sharded_k2 = timed("lm-sharded", phase_lm_sharded, dry)
     family_launches = 0
     for name, arch, k2_want in LM_FAMILIES:
         family_launches += timed(name, phase_lm_family, dev, name, arch,

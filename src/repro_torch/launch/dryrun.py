@@ -34,7 +34,8 @@ carries:
   the JAX package's convention (the received volume for an all-gather);
   a point-to-point receive counts as a collective-permute.  On a CPU
   mesh DTensor performs an all-to-all as an all-gather and a slice, and
-  it is counted as what ran;
+  it is counted as what ran; ``collective_max_bytes``, the largest one
+  of each kind;
 * ``mem``, per rank: ``argument``, the bytes of rank 0's local shards of
   the parameters, optimizer state and inputs (and cache), from the
   resolved specs (``argument_parts`` splits them); ``temp``, the peak of
@@ -62,9 +63,11 @@ prefill's attention is K2's plain version (``attention_ref``), whose
 (B, H, S, T) scores count in ``temp`` and its FLOPs in ``flops`` where
 the kernel keeps them on chip and skips the masked half; a simulator
 cell's Phase 2 is the fused kernel's plain version.  Nothing is
-launched.  A decode cell runs the data-parallel decode of
-``make_serve_step(mesh=)``: every weight gathered whole, each rank's
-batch rows decoded.
+launched.  A decode cell runs ``make_serve_step(mesh=)``, split as the
+JAX package's decode cell splits it: the weights as ``param_pspecs``
+places them (gathered over the data axes at each use, never over the
+model axis), the cache as ``cache_pspecs`` places it.  A cell with
+``mesh=None`` traces one device's step (no process group, no DTensor).
 """
 from __future__ import annotations
 
@@ -193,12 +196,14 @@ class Meter(TorchDispatchMode):
     operation and sees the local ones).  ``flops`` sums the formulas of
     ``torch.utils.flop_counter``; ``collectives`` maps each kind to the
     bytes of the results, the received buffer of a point-to-point
-    receive (the in-place ``c10d`` operations: their output buffers)."""
+    receive (the in-place ``c10d`` operations: their output buffers);
+    ``largest`` the bytes of the largest single one of each kind."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.collectives: Dict[str, int] = {}
+        self.largest: Dict[str, int] = {}
         self._table = _collective_table()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -212,17 +217,18 @@ class Meter(TorchDispatchMode):
             self.flops += int(count(*args, **kwargs, out_val=out))
         if pk in self._table:
             kind, returned = self._table[pk]
-            res = out if returned else args[0]
-            self.collectives[kind] = \
-                self.collectives.get(kind, 0) + _nbytes(res)
+            n = _nbytes(out if returned else args[0])
+            self.collectives[kind] = self.collectives.get(kind, 0) + n
+            self.largest[kind] = max(self.largest.get(kind, 0), n)
         return out
 
 
 def measure(fn, warmup: bool) -> Tuple[Any, dict]:
     """Run ``fn()`` (inside a fake world and fake-tensor mode) and
-    measure it: (its result, {"flops", "collective_bytes", "temp",
-    "trace_s", "warmup_s"}).  With ``warmup`` it runs once unmeasured
-    first (see the module docstring)."""
+    measure it: (its result, {"flops", "collective_bytes",
+    "collective_max_bytes", "temp", "trace_s", "warmup_s"}).  With
+    ``warmup`` it runs once unmeasured first (see the module
+    docstring)."""
     from torch.distributed._tools.mem_tracker import MemTracker
 
     warm_s = 0.0
@@ -239,14 +245,17 @@ def measure(fn, warmup: bool) -> Tuple[Any, dict]:
     temp = max((d["Total"] for d in peak.values()), default=0)
     return out, {"flops": float(m.flops),
                  "collective_bytes": dict(sorted(m.collectives.items())),
+                 "collective_max_bytes": dict(sorted(m.largest.items())),
                  "temp": int(temp), "trace_s": round(secs, 3),
                  "warmup_s": round(warm_s, 3)}
 
 
 def mesh_dims(mesh) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
     """(dims, axes) of ``mesh``: "single" (16, 16) over ("data",
-    "model"), "multi" (2, 16, 16) over ("pod", "data", "model"), or a
-    (dims, axes) pair."""
+    "model"), "multi" (2, 16, 16) over ("pod", "data", "model"), a
+    (dims, axes) pair, or ``None`` (one device, no mesh): ((), ())."""
+    if mesh is None:
+        return (), ()
     if mesh in ("single", "multi"):
         return PRODUCTION[mesh == "multi"]
     dims, axes = mesh
@@ -254,6 +263,8 @@ def mesh_dims(mesh) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
 
 
 def _mesh_name(mesh) -> str:
+    if mesh is None:
+        return "one"
     if mesh in ("single", "multi"):
         return mesh
     return "x".join(map(str, mesh_dims(mesh)[0]))
@@ -264,10 +275,14 @@ def _mesh_name(mesh) -> str:
 # ---------------------------------------------------------------------------
 
 def _placed(tree, specs, mesh):
-    """Whole (fake) tensors placed as DTensors by their resolved specs."""
+    """Whole (fake) tensors placed as DTensors by their resolved specs
+    (left whole without a mesh)."""
     from repro_torch.parallel.sharding import (distribute, placements,
                                                resolve_pspec)
     from repro_torch.train.optim import tree_map
+
+    if mesh is None:
+        return tree
 
     def one(t, spec):
         spec = resolve_pspec(spec, mesh, t.shape)
@@ -315,8 +330,10 @@ def lm_cell(arch: str, shape, mesh="single", cfg=None) -> dict:
     """Trace rank 0 of one LM cell: ``arch`` (a registry id; ``cfg``
     overrides its config), ``shape`` (a name of :data:`SHAPES` or a
     :class:`ShapeSpec`) on ``mesh`` ("single", "multi" or (dims, axes)),
-    in a fake world of the mesh's size.  Returns the record; an
-    inapplicable cell's record is ``skipped`` with the rule's ``why``."""
+    in a fake world of the mesh's size; ``mesh=None`` traces the step of
+    one device, with no process group and no DTensor.  Returns the
+    record; an inapplicable cell's record is ``skipped`` with the
+    rule's ``why``."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import costs
 
@@ -328,12 +345,13 @@ def lm_cell(arch: str, shape, mesh="single", cfg=None) -> dict:
         return {"arch": arch, "shape": shp.name, "mesh": name,
                 "skipped": True, "why": why}
     dims, axes = mesh_dims(mesh)
-    with fake_world(math.prod(dims)):
+    with fake_world(math.prod(dims)) if dims else contextlib.nullcontext():
         # the mesh holds real rank numbers: made before the fake mode
-        dmesh = make_mesh(dims, axes, device="cpu")
+        dmesh = make_mesh(dims, axes, device="cpu") if dims else None
         with fake_tensors():
             fn, parts = _lm_step(cfg, shp, dmesh)
-            out, m = measure(fn, warmup=True)
+            # DTensor only: its first sharding propagation runs extra ops
+            out, m = measure(fn, warmup=dmesh is not None)
             out_bytes = _nbytes(out)
     coll = m["collective_bytes"]
     res = {
@@ -342,6 +360,7 @@ def lm_cell(arch: str, shape, mesh="single", cfg=None) -> dict:
         "devices": math.prod(dims),
         "flops": m["flops"],
         "collective_bytes": coll,
+        "collective_max_bytes": m["collective_max_bytes"],
         # eager tracing runs every layer: nothing to extrapolate
         "corrected": {"flops": m["flops"], "collective_bytes": coll},
         "analytic_flops_global": costs.cell_flops(

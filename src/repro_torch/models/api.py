@@ -7,7 +7,9 @@ The counterpart of the JAX package's ``repro.models.api``:
   input_specs / input_pspecs / make_inputs
   loss_fn(cfg, params, batch, mesh=None)         causal-LM cross entropy
   forward_logits(cfg, params, batch, mesh=None)  cache-free forward (prefill)
-  decode_step(cfg, params, cache, tokens)        one-token serve step
+  decode_step(cfg, params, cache, tokens, mesh=None)  one-token serve step
+  prefill(cfg, params, batch, cache)             a prompt into the cache
+                                                 (wrong for S > 1: R4)
 
 With a ``mesh`` (a ``DeviceMesh`` over ``("pod",) "data", "model"``
 axes), ``params`` are DTensors placed by ``param_pspecs`` (see
@@ -17,9 +19,7 @@ cuts to its own shard by ``input_pspecs``, or DTensors.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (or another device), and raise without a GPU: nothing falls back to the
-CPU.  ``prefill`` (a prompt written into the cache in one call) waits
-because the JAX package's version masks the prompt's own keys
-(``ROADMAP.md`` §3).
+CPU.
 """
 from __future__ import annotations
 
@@ -229,11 +229,36 @@ def forward_logits(cfg: ModelConfig, params, batch, device=None, mesh=None):
     return forward(cfg, params, batch, cache=None, mesh=mesh)
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, device=None):
+def decode_step(cfg: ModelConfig, params, cache, tokens, device=None,
+                mesh=None):
     """One decode step: tokens (B, 1) -> (logits (B, vocab), new cache).
-    ``params`` and ``cache`` must already be on ``device``."""
+    ``params`` and ``cache`` must already be on ``device``.  With a
+    ``mesh`` they are DTensors placed by ``param_pspecs`` and
+    ``cache_pspecs``, the tokens a DTensor or a whole array (each rank
+    cuts its rows), and the logits and new cache come out as DTensors."""
     dev = resolve_device(device)
     _check_params(params, dev)
-    tokens = _to(tokens, dev, torch.int32)
-    logits, new_cache = forward(cfg, params, {"tokens": tokens}, cache=cache)
+    tokens = _batch_on(cfg, {"tokens": _to(tokens, dev, torch.int32)},
+                       dev, mesh, "decode")["tokens"]
+    logits, new_cache = forward(cfg, params, {"tokens": tokens}, cache=cache,
+                                mesh=mesh)
+    return logits[:, -1], new_cache
+
+
+def prefill(cfg: ModelConfig, params, batch, cache, device=None):
+    """Run the prompt through the model writing into the cache: (the last
+    token's logits (B, vocab), new cache), as the JAX package's
+    ``prefill`` does.
+
+    Defect R4, kept for parity: it is wrong for a prompt of S > 1
+    tokens.  The attention block masks the cache slots past the write
+    index as it stood BEFORE the write (``valid = kpos <= idx``), so
+    every prompt token sees only the keys up to the first one, not the
+    prompt before it.  S calls of :func:`decode_step` give the right
+    logits; the serving path uses those, and nothing in the port calls
+    this function."""
+    dev = resolve_device(device)
+    _check_params(params, dev)
+    batch = _batch_on(cfg, batch, dev, None, "prefill")
+    logits, new_cache = forward(cfg, params, batch, cache=cache)
     return logits[:, -1], new_cache

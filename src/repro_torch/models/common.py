@@ -239,11 +239,76 @@ BLOCK_K = 1024
 BLOCK_THRESHOLD = 2048 * 2048
 
 
+class _Remat(torch.autograd.Function):
+    """``fn(*args)`` (tensors in, a tensor or a tuple of tensors out)
+    keeping only ``args`` for the backward, which computes ``fn`` again
+    there: the JAX package's ``jax.checkpoint``.  Made by hand rather
+    than with ``torch.utils.checkpoint``: the inputs go through
+    ``ctx.save_for_backward``, so in the first pass of a layer that
+    ``checkpoint`` itself recomputes they are dropped with every other
+    save of that pass, where a nested ``checkpoint`` pins its inputs
+    until the backward."""
+
+    @staticmethod
+    def forward(ctx, fn, *args):
+        ctx.fn = fn
+        ctx.save_for_backward(*args)
+        return fn(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            xs = [a.detach().requires_grad_(n)
+                  for a, n in zip(ctx.saved_tensors, need)]
+            outs = ctx.fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        want = [x for x, n in zip(xs, need) if n]
+        got = iter(torch.autograd.grad(
+            [o for o, _ in pairs], want, [g for _, g in pairs],
+            allow_unused=True) if pairs else [None] * len(want))
+        return (None,) + tuple(next(got) if n else None for n in need)
+
+
+def _key_chunk(qcur, qp, ks, vs, kp, ok, m, l, acc, causal: bool,
+               window: int):
+    """One key chunk of the online softmax: the running max ``m``, sum
+    ``l`` and output ``acc`` of a query chunk updated with keys ``ks``,
+    values ``vs`` at positions ``kp``; ``ok`` (B, 1, 1, 1, kc) masks the
+    keys that lie outside the band or past the key count."""
+    lg = torch.einsum("bqkrd,btkd->bkrqt", qcur, ks.float())
+    qp_ = qp[:, None, None, :, None]
+    kp_ = kp[:, None, None, None, :]
+    if causal:
+        ok = ok & (qp_ >= kp_)
+    if window > 0:
+        ok = ok & (qp_ - kp_ < window)
+    lg = torch.where(ok, lg, -1e30)
+    m_new = torch.maximum(m, lg.amax(dim=-1))
+    p = torch.exp(lg - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + \
+        torch.einsum("bkrqt,btkd->bqkrd", p, vs.float())
+    return m_new, l, acc
+
+
 def _blocked_attention(q, k, v, q_pos, k_pos, causal, window,
                        qc=BLOCK_Q, kc=BLOCK_K, banded: bool = False):
     """Online-softmax attention, chunked over queries and keys.
 
     Peak memory per step is (B, KV, rep, qc, kc) instead of (B, H, S, T).
+    Under autograd each query chunk and, inside it, each key chunk is
+    checkpointed (the JAX package's ``jax.checkpoint`` of both), so the
+    backward holds one chunk's scores at a time, not every chunk's.
+
+    The key count need not divide ``kc``: the keys are padded to a
+    multiple of it, and the padded keys are masked.  (The JAX package
+    halves its key chunk until it divides the key count, which leaves
+    one-key chunks for a prime count such as 1,601 image tokens.)  The
+    query chunk still halves until it divides the query count.
 
     ``banded=True`` (sliding-window path): each query chunk visits only the
     k-chunks intersecting its [q-window, q] band — O(S·window) instead of
@@ -257,48 +322,45 @@ def _blocked_attention(q, k, v, q_pos, k_pos, causal, window,
     kc = min(kc, t)
     while s % qc:
         qc //= 2
-    while t % kc:
-        kc //= 2
-    nq, nk = s // qc, t // kc
+    nq, nk = s // qc, -(-t // kc)
+    pad = nk * kc - t
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad))
+    # the chunk functions close over no activation: a _Remat node keeps
+    # its function until the backward
+    dev = q.device
+    key_ok = torch.arange(nk * kc, device=dev) < t
     qf = (q.float() / (d ** 0.5)).reshape(b, nq, qc, kvh, rep, d)
     qpos_c = q_pos.reshape(b, nq, qc)
 
     use_band = banded and window > 0 and causal
     # k-chunks per band: cover [qi*qc - window + 1 .. qi*qc + qc - 1]
     nk_band = min(nk, (window + qc - 2) // kc + 2) if use_band else nk
+    # without a gradient to take, _Remat.apply records nothing and runs
+    # its function once
+    key_chunk = lambda *t: _key_chunk(*t, causal, window)  # noqa: E731
 
-    outs = []
-    for qi in range(nq):
-        qcur, qp = qf[:, qi], qpos_c[:, qi]
-        m = torch.full((b, kvh, rep, qc), -1e30, dtype=F32, device=q.device)
-        l = torch.zeros((b, kvh, rep, qc), dtype=F32, device=q.device)
-        acc = torch.zeros((b, qc, kvh, rep, d), dtype=F32, device=q.device)
+    def q_chunk(qcur, qp, k, v, k_pos, qi: int):
+        m = torch.full((b, kvh, rep, qc), -1e30, dtype=F32, device=dev)
+        l = torch.zeros((b, kvh, rep, qc), dtype=F32, device=dev)
+        acc = torch.zeros((b, qc, kvh, rep, d), dtype=F32, device=dev)
         lo = max(qi * qc - (window - 1), 0) // kc if use_band else 0
         for j in range(nk_band):
             in_range = (lo + j) < nk     # banded tail: mask, never revisit
             kj = min(max(lo + j, 0), nk - 1)
-            ks = k[:, kj * kc:(kj + 1) * kc].float()
-            vs = v[:, kj * kc:(kj + 1) * kc].float()
-            kp = k_pos[:, kj * kc:(kj + 1) * kc]
-            lg = torch.einsum("bqkrd,btkd->bkrqt", qcur, ks)
-            qp_ = qp[:, None, None, :, None]
-            kp_ = kp[:, None, None, None, :]
-            ok = torch.full((b, 1, 1, qc, kc), in_range, dtype=torch.bool,
-                            device=q.device)
-            if causal:
-                ok = ok & (qp_ >= kp_)
-            if window > 0:
-                ok = ok & (qp_ - kp_ < window)
-            lg = torch.where(ok, lg, -1e30)
-            m_new = torch.maximum(m, lg.amax(dim=-1))
-            p = torch.exp(lg - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + \
-                torch.einsum("bkrqt,btkd->bqkrd", p, vs)
-            m = m_new
+            cut = slice(kj * kc, (kj + 1) * kc)
+            ok = (key_ok[cut] & in_range)[None, None, None, None, :]
+            m, l, acc = _Remat.apply(key_chunk, qcur, qp, k[:, cut],
+                                     v[:, cut], k_pos[:, cut], ok, m, l, acc)
         denom = torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
-        outs.append(acc / denom)                    # (b, qc, kvh, rep, d)
+        return acc / denom                          # (b, qc, kvh, rep, d)
+
+    # the keys and values are each query chunk's inputs too: the
+    # recompute takes their gradient
+    outs = [_Remat.apply(lambda *t, i=qi: q_chunk(*t, i), qf[:, qi],
+                         qpos_c[:, qi], k, v, k_pos) for qi in range(nq)]
     out = torch.stack(outs, dim=1).reshape(b, s, h, d)
     return out.to(q.dtype)
 
@@ -399,6 +461,33 @@ def _sharded_attention(cfg: ModelConfig, q, k, v, q_pos, k_pos, causal,
                      batch_like(k_pos, k))
 
 
+def _cache_write(kc, vc, k, v, idx, pos, window: int = 0):
+    """``k``, ``v`` (B, S, KV, D) written into the cache ``kc``, ``vc``
+    (B, T, KV, D) at ``idx`` (a rolling slot when ``window`` bounds the
+    cache): (kc, vc, query positions (B, S), key positions (B, T)), the
+    slots not yet written at position ``1 << 30``, past every query."""
+    b, s = k.shape[:2]
+    t = kc.shape[1]
+    slot = idx % t if window > 0 else idx
+    # dynamic_update_slice semantics: the start is clamped so that the
+    # s new rows fit, [0, t - s]
+    start = torch.clamp(slot, 0, t - s)
+    rows = (start + torch.arange(s, device=kc.device)).long()
+    kc = kc.index_copy(1, rows, k.to(kc.dtype))
+    vc = vc.index_copy(1, rows, v.to(vc.dtype))
+    # absolute positions of cache slots
+    ar = torch.arange(t, dtype=torch.int32, device=kc.device)[None, :]
+    if window > 0:
+        base = idx - slot
+        kpos = ar + base
+        kpos = torch.where(ar <= slot, kpos, kpos - t)
+    else:
+        kpos = ar.expand(b, t)
+    qpos = (pos[None] if pos.dim() == 1 else pos).expand(b, s)
+    valid = (kpos >= 0) & (kpos <= idx)
+    return kc, vc, qpos, torch.where(valid, kpos, 1 << 30).expand(b, t)
+
+
 def attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
                cache: Optional[Tuple] = None, causal: bool = True,
                window: int = 0, rope_on: bool = True):
@@ -428,25 +517,20 @@ def attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
         new_cache = None
     else:
         kc, vc, idx = cache
-        t = kc.shape[1]
-        slot = idx % t if window > 0 else idx
-        # dynamic_update_slice semantics: the start is clamped so that the
-        # s new rows fit, [0, t - s]
-        start = torch.clamp(slot, 0, t - s)
-        rows = (start + torch.arange(s, device=kc.device)).long()
-        kc = kc.index_copy(1, rows, k.to(kc.dtype))
-        vc = vc.index_copy(1, rows, v.to(vc.dtype))
-        # absolute positions of cache slots
-        ar = torch.arange(t, dtype=torch.int32, device=kc.device)[None, :]
-        if window > 0:
-            base = idx - slot
-            kpos = ar + base
-            kpos = torch.where(ar <= slot, kpos, kpos - t)
+        write = lambda *a: _cache_write(*a, window=window)  # noqa: E731
+        if is_sharded(kc):
+            # each rank writes its own rows; the new keys and values come
+            # whole over the axes the cache is whole over (their heads
+            # may be split over the model axis, the cache's are not)
+            k, v = like(k, kc), like(v, kc)
+            rows = [Shard(0) if p_ == Shard(0) else Replicate()
+                    for p_ in kc.placements]
+            kc, vc, qpos, kpos_m = local_map(
+                write, (kc.placements, vc.placements, rows, rows), kc, vc,
+                k, v, idx, batch_like(pos if pos.dim() == 2 else
+                                      pos[None].expand(b, s), kc))
         else:
-            kpos = ar.expand(b, t)
-        qpos = (pos[None] if pos.dim() == 1 else pos).expand(b, s)
-        valid = (kpos >= 0) & (kpos <= idx)
-        kpos_m = torch.where(valid, kpos, 1 << 30)
+            kc, vc, qpos, kpos_m = write(kc, vc, k, v, idx, pos)
         o = attention(cfg, q, kc, vc, qpos, kpos_m, causal=True,
                       window=window)
         new_cache = (kc, vc, idx + s)

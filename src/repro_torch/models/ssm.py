@@ -126,6 +126,22 @@ def causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                                     ).to(xbc.dtype), new_state
 
 
+def _scan_and_skip(xh, dt, a_log, d_skip, dt_bias, bb, cc,
+                   h: Optional[torch.Tensor] = None):
+    """The mixer after its conv: softplus'd step sizes, the SSD scan
+    (``h`` None) or the decode step from the state ``h``, and the skip.
+    xh: (B, S, H, P) -> (y (B, S, H*P), the new state or None)."""
+    # jax.nn.softplus is logaddexp(x, 0)
+    dt = dt.float() + dt_bias.float()
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))
+    if h is None:
+        y, h_new = ssd_chunked(xh, dt, a_log, bb, cc)[0], None
+    else:
+        y, h_new = ssd_decode(xh, dt, a_log, bb, cc, h)
+    y = y + xh.float().to(y.dtype) * d_skip.to(y.dtype)[None, None, :, None]
+    return y.reshape(*y.shape[:2], -1), h_new
+
+
 def _mix_core(cfg: ModelConfig, xi, bb, cc, dt, z, conv_w, conv_b, a_log,
               d_skip, dt_bias, cache: Optional[Tuple]):
     """The mixer between its input and output projections: softplus'd
@@ -134,9 +150,6 @@ def _mix_core(cfg: ModelConfig, xi, bb, cc, dt, z, conv_w, conv_b, a_log,
     bsz, s, _ = xi.shape
     din = cfg.d_inner
     nh, ph, ns = cfg.n_ssm_heads, cfg.ssm_d_head, cfg.ssm_state
-    # jax.nn.softplus is logaddexp(x, 0)
-    dt = dt.float() + dt_bias.float()
-    dt = torch.logaddexp(dt, torch.zeros_like(dt))
 
     xbc = torch.cat([xi, bb, cc], dim=-1)
     conv_state = None if cache is None else cache[0]
@@ -146,17 +159,59 @@ def _mix_core(cfg: ModelConfig, xi, bb, cc, dt, z, conv_w, conv_b, a_log,
     cc = xbc[..., din + ns:]
 
     xh = xi.reshape(bsz, s, nh, ph)
-    if cache is None:
-        y, _ = ssd_chunked(xh, dt, a_log, bb, cc)
-        new_cache = None
-    else:
-        y, h_fin = ssd_decode(xh, dt, a_log, bb, cc, cache[1])
-        new_cache = (conv_state_new, h_fin)
-    y = y + xh.float().to(y.dtype) * d_skip.to(y.dtype)[None, None, :, None]
-    y = y.reshape(bsz, s, din)
+    y, h_fin = _scan_and_skip(xh, dt, a_log, d_skip, dt_bias, bb, cc,
+                              None if cache is None else cache[1])
+    new_cache = None if cache is None else (conv_state_new, h_fin)
     if z is not None:
         y = y * torch.nn.functional.silu(z.float()).to(y.dtype)
     return y, new_cache
+
+
+def _decode_on_mesh(cfg: ModelConfig, xi, bb, cc, dt, z, conv_w, conv_b,
+                    a_log, d_skip, dt_bias, cache: Tuple):
+    """:func:`_mix_core`'s decode step of DTensors, split as the cache
+    is: the conv on the conv state's channels (split over the model
+    axis, with ``conv_w`` and ``conv_b``), the recurrence on the SSM
+    state's heads, each rank on its batch rows.  No weight is gathered
+    over the model axis; the activations between are a token's.
+    Returns (y (B, 1, din), split as the state's heads, the new
+    cache)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    conv_s, h = cache
+    mesh = conv_s.device_mesh
+    bsz = xi.shape[0]
+    din, ns = cfg.d_inner, cfg.ssm_state
+    nh, ph = cfg.n_ssm_heads, cfg.ssm_d_head
+
+    def channels(w, dim):
+        """``w`` split on its ``dim`` as the conv state splits its
+        channels (a slice of a whole ``w``, no gather)."""
+        return w.redistribute(mesh, [Shard(dim) if p == Shard(2) else
+                                     Replicate() for p in conv_s.placements])
+
+    rows = [p if p == Shard(0) else Replicate() for p in conv_s.placements]
+    xbc = torch.cat([rows_whole(t) for t in (xi, bb, cc)], dim=-1)
+    xbc, conv_new = local_map(
+        causal_conv, (conv_s.placements, conv_s.placements),
+        xbc.redistribute(mesh, conv_s.placements),
+        channels(conv_w, 1), channels(conv_b, 0), conv_s)
+    xbc = xbc.redistribute(mesh, rows)
+    xh = xbc[..., :din].reshape(bsz, 1, nh, ph)
+    bb, cc = xbc[..., din:din + ns], xbc[..., din + ns:]
+
+    heads = [Shard(2) if p == Shard(1) else p for p in h.placements]
+    per_head = [Shard(0) if p == Shard(1) else Replicate()
+                for p in h.placements]
+
+    y, h_new = local_map(
+        _scan_and_skip, (heads, h.placements), xh.redistribute(mesh, heads),
+        rows_whole(dt).redistribute(mesh, heads),
+        *(w.redistribute(mesh, per_head) for w in (a_log, d_skip, dt_bias)),
+        bb, cc, h)
+    if z is not None:
+        y = y * torch.nn.functional.silu(z.float()).to(y.dtype)
+    return y, (conv_new, h_new)
 
 
 def mamba2_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -173,7 +228,8 @@ def mamba2_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
     sequence whole; the conv and the scan, which have no DTensor rules
     (``cumsum``, segment sums, the chunk loop), run on each rank's batch
     rows through ``local_map``; the output projection's partial sums are
-    reduce-scattered back onto ``x``'s placement.
+    reduce-scattered back onto ``x``'s placement.  A decode step on a
+    mesh runs on the cache's split (:func:`_decode_on_mesh`).
     """
     xt = rows_whole(x)
     proj = lambda w: torch.einsum("bsd,de->bse", xt,  # noqa: E731
@@ -182,9 +238,9 @@ def mamba2_mix(cfg: ModelConfig, p: dict, x: torch.Tensor,
     z = proj(p["in_z"]) if gated and "in_z" in p else None
     small = [p[k] for k in ("conv_w", "conv_b", "a_log", "d_skip",
                             "dt_bias")]
-    if is_sharded(x):
-        if cache is not None:
-            raise NotImplementedError("SSM decoding on a mesh")
+    if is_sharded(x) and cache is not None:
+        y, new_cache = _decode_on_mesh(cfg, xi, bb, cc, dt, z, *small, cache)
+    elif is_sharded(x):
         ins = [rows_whole(t) for t in (xi, bb, cc, dt)]
         ins.append(None if z is None else rows_whole(z))
         ins += [replicated(w) for w in small]

@@ -19,11 +19,12 @@ import contextlib
 from typing import Any, Dict, Optional
 
 import torch
+from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import checkpoint
 
 from .common import (attn_block, batch_like, cdt, cross_attn_block,
-                     current_route, is_sharded, rmsnorm, rows_whole,
-                     shard_act, swiglu, weight)
+                     current_route, is_sharded, local_map, rmsnorm,
+                     rows_whole, shard_act, swiglu, weight)
 from .config import ModelConfig
 from .moe import moe_block
 from .params import Alt, Leaf
@@ -285,7 +286,17 @@ def _embed(cfg: ModelConfig, params, tokens):
 def _unembed(cfg: ModelConfig, params, x):
     x = rows_whole(rmsnorm(x, params["ln_f"], cfg.norm_eps))
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return torch.einsum("bsd,dv->bsv", x, weight(w, x.dtype))
+    logits = torch.einsum("bsd,dv->bsv", x, weight(w, x.dtype))
+    if is_sharded(logits):
+        # a head split over d (a vocabulary that does not divide the model
+        # axis) gives partial sums: reduce-scatter them onto the vocabulary.
+        # Left partial, DTensor places the loss's ops as it likes, and at
+        # the production meshes it split the sequence over the model axis,
+        # whose flatten in the head's backward (a _StridedShard) it cannot
+        # propagate through bmm
+        logits = logits.redistribute(logits.device_mesh, [
+            Shard(2) if p.is_partial() else p for p in logits.placements])
+    return logits
 
 
 def _dense_layer(cfg, pl_, x, pos, cache, window=0):
@@ -383,16 +394,21 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     runs the cache-free forward SPMD, with the sequence-parallel
     constraint ``P(DP, TP, None)`` on the residual stream between layers
     (remat-saved activations shrink by the TP degree); the logits come
-    out as a DTensor, the vocabulary split as the head is."""
-    if mesh is not None and cache is not None:
-        raise NotImplementedError("decoding on a mesh: the sharded path "
-                                  "is the cache-free forward")
+    out as a DTensor, the vocabulary split over the model axis.  With a
+    cache (DTensors placed by ``cache_pspecs``) a decode step runs on
+    each rank's rows of the cache: the weights stay split as their
+    specs place them (heads and columns over the model axis, gathered
+    over the data axes at each use as in the forward), each rank writes
+    its rows of the K/V cache and its channels and heads of the SSM
+    state, and the new cache comes out placed as the old one.  The
+    residual stream of a one-token step has no sequence to split."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
-    sp = P(DP, TP, None)
-    sa = (lambda t: shard_act(t, sp, mesh)) if cache is None \
-        else (lambda t: t)
+    # the residual stream's placement between layers: sequence-parallel,
+    # or for a decode step (one token) the batch rows only
+    sp = P(DP, TP, None) if cache is None else P(DP, None, None)
+    sa = lambda t: shard_act(t, sp, mesh)  # noqa: E731
     x = sa(_embed(cfg, params, tokens))
     ar = torch.arange(s, dtype=torch.int32, device=dev)[None]
     if cache is None:
@@ -400,7 +416,8 @@ def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         idx = None
     else:
         idx = cache["idx"]
-        pos = (idx + ar).expand(b, s)
+        pos = local_map(lambda i: (i + ar).expand(b, s), idx.placements,
+                        idx) if is_sharded(idx) else (idx + ar).expand(b, s)
 
     # remat as the JAX package's jax.checkpoint of the layer body: each
     # layer (a vlm group) keeps only its input and recomputes the rest in

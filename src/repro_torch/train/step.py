@@ -75,54 +75,18 @@ def make_train_step(cfg: ModelConfig, opt: OptConfig, device=None,
 def make_serve_step(cfg: ModelConfig, device=None, mesh=None):
     """(params, cache, tokens (B,1)) -> (logits (B,V), cache).
 
-    With a ``mesh`` the decode is data-parallel: each rank gathers every
-    weight whole (once a call), brings its cache rows whole over the
-    other mesh axes, decodes its batch rows as one device would, and
-    returns the logits split as the batch and the cache placed as it
-    came in (DTensors).  ``cache`` holds DTensors placed by the resolved
-    ``cache_pspecs``; ``tokens`` a DTensor or a whole array, which each
-    rank cuts by ``P(DP, None)``."""
+    With a ``mesh`` the decode runs SPMD as the JAX package's decode
+    cell splits it (``api.decode_step(mesh=)``): the weights stay split
+    by ``param_pspecs``, the cache by ``cache_pspecs`` (``cache`` holds
+    such DTensors and comes back placed as it came), ``tokens`` a
+    DTensor or a whole array, which each rank cuts by ``P(DP, None)``;
+    the logits come out a DTensor."""
 
     def serve_step(params, cache, tokens):
-        if mesh is None:
-            return api.decode_step(cfg, params, cache, tokens,
-                                   device=device)
-        return _serve_on_mesh(cfg, mesh, params, cache, tokens, device)
+        return api.decode_step(cfg, params, cache, tokens, device=device,
+                               mesh=mesh)
 
     return serve_step
-
-
-def _serve_on_mesh(cfg: ModelConfig, mesh, params, cache, tokens, device):
-    from torch.distributed.tensor import DTensor, Replicate
-
-    from repro_torch.models.common import DATA_AXES
-    from repro_torch.parallel.sharding import (P, distribute, placements,
-                                               resolve_pspec)
-
-    def rows(t):
-        """The placements of ``t`` with only its data-axis splits kept."""
-        return [p if a in DATA_AXES else Replicate()
-                for a, p in zip(mesh.mesh_dim_names, t.placements)]
-
-    if not isinstance(tokens, DTensor):
-        tokens = torch.as_tensor(tokens, dtype=torch.int32,
-                                 device=resolve_device(device))
-        spec = resolve_pspec(P(api.DP, None), mesh, tokens.shape)
-        tokens = distribute(tokens, mesh, placements(spec, mesh))
-    whole = tree_map(lambda p: p.full_tensor(), params)
-    local = tree_map(lambda c: c.redistribute(mesh, rows(c)).to_local(),
-                     cache)
-    tok_pl = rows(tokens)
-    logits, new = api.decode_step(
-        cfg, whole, local, tokens.redistribute(mesh, tok_pl).to_local(),
-        device=device)
-    new = tree_map(lambda n, c: DTensor.from_local(
-        n.contiguous(), mesh, rows(c), run_check=False, shape=c.shape,
-        stride=c.stride()).redistribute(mesh, c.placements), new, cache)
-    v = logits.shape[-1]
-    logits = DTensor.from_local(logits, mesh, tok_pl, run_check=False,
-                                shape=(tokens.shape[0], v), stride=(v, 1))
-    return logits, new
 
 
 def make_prefill_step(cfg: ModelConfig, device=None, mesh=None):

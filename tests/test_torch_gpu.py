@@ -547,3 +547,87 @@ def test_dry_run_fake_group_runs_with_the_cards_torch(cuda):
     noc = dryrun.noc_cell("noc_43k")
     assert noc["collective_bytes"]["collective-permute"] > 0
     assert torch.cuda.max_memory_allocated() == before
+
+
+#: the families of the mesh decode on the card, reduced, float32
+MESH_DECODE_ARCHS = ("tinyllama-1.1b", "qwen2-moe-a2.7b", "mamba2-130m",
+                     "hymba-1.5b", "llama-3.2-vision-11b", "whisper-small")
+
+
+def sharded_decode(shape, steps, cache_len):
+    """``steps`` decode steps of every arch of MESH_DECODE_ARCHS on a mesh
+    of gloo ranks sharing cuda:0, the weights split by ``param_pspecs``
+    and the cache by ``cache_pspecs``: {arch: logits whole (B, steps,
+    V)}."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sharding import (distribute, placements,
+                                               resolve_pspec)
+    from repro_torch.train import optim, step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(shape, ("data", "model"))
+    out = {}
+    for arch in MESH_DECODE_ARCHS:
+        cfg = dataclasses.replace(registry.reduced(arch),
+                                  compute_dtype="float32")
+        params = api.init_params(cfg, 0, mesh=mesh)
+        cache = optim.tree_map(
+            lambda c, sp: distribute(c, mesh, placements(
+                resolve_pspec(sp, mesh, c.shape), mesh)),
+            api.init_cache(cfg, 4, cache_len),
+            api.cache_pspecs(cfg, 4, cache_len),
+            is_leaf=lambda x: isinstance(x, torch.Tensor))
+        toks = np.random.default_rng(1).integers(0, cfg.vocab, (4, steps))
+        serve = step.make_serve_step(cfg, mesh=mesh)
+        got = []
+        for t in range(steps):
+            lg, cache = serve(params, cache, toks[:, t:t + 1])
+            got.append(lg.full_tensor().cpu().numpy())
+        out[arch] = np.stack(got, 1)
+    return out
+
+
+def test_mesh_decode_on_gloo_ranks_sharing_the_card_equals_one_device(
+        cuda, tmp_path):
+    """Every family's decode on a (2, 2) mesh of four gloo ranks on
+    cuda:0, the weights left split, against the one-device decode on the
+    card (float32, 1e-4, the CPU tests' decode tolerance)."""
+    from repro_torch import dist as rdist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    steps, cache_len = 3, 16
+    got = rdist.spawn(sharded_decode, 4, ((2, 2), steps, cache_len),
+                      device="cuda:0", backend="gloo",
+                      init_method=f"file://{tmp_path}/store",
+                      timeout_s=600)
+    for arch in MESH_DECODE_ARCHS:
+        cfg = dataclasses.replace(registry.reduced(arch),
+                                  compute_dtype="float32")
+        params = api.init_params(cfg, 0)
+        cache = api.init_cache(cfg, 4, cache_len)
+        toks = np.random.default_rng(1).integers(0, cfg.vocab, (4, steps))
+        want = []
+        for t in range(steps):
+            lg, cache = api.decode_step(cfg, params, cache, toks[:, t:t + 1])
+            want.append(lg.cpu().numpy())
+        for rank in got:
+            assert np.max(np.abs(rank[arch] - np.stack(want, 1))) < 1e-4, \
+                arch
+
+
+def test_prefill_on_the_card_equals_the_cpu_run(cuda):
+    """``api.prefill`` (defect R4 kept) on the card against the CPU,
+    reduced tinyllama, float32, B 2 x S 12 into a 16-slot cache, 1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.reduced("tinyllama-1.1b"),
+                              compute_dtype="float32")
+    params = api.init_params(cfg, 0, device="cpu")
+    on_card = convert.params_from_numpy(convert.params_to_numpy(params),
+                                        cuda, cfg)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (2, 12))
+    want, wc = api.prefill(cfg, params, {"tokens": toks},
+                           api.init_cache(cfg, 2, 16, "cpu"), device="cpu")
+    got, gc = api.prefill(cfg, on_card, {"tokens": toks},
+                          api.init_cache(cfg, 2, 16))
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+    assert int(gc["idx"]) == int(wc["idx"]) == 12
+    for name in ("k", "v"):
+        assert float((gc[name].cpu() - wc[name]).abs().max()) < 1e-4

@@ -1,6 +1,8 @@
 """The port stands alone and never falls back to the CPU.
 
-* ``repro_torch`` imports neither ``jax`` nor anything of ``repro``;
+* ``repro_torch`` and the port's drivers (``examples/*_torch.py``,
+  ``scripts/*_torch.py``) import neither ``jax`` nor anything of
+  ``repro``;
 * its entry points run on the GPU unless asked for the CPU, and raise
   when there is none;
 * ``chip_smoke.py`` fails without a GPU, and alone in a directory.
@@ -109,9 +111,15 @@ def test_no_source_mentions_a_jax_or_repro_import():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
+    # the port's drivers beside the JAX package's
+    for d in ("examples", "scripts"):
+        files += [os.path.join(ROOT, d, n)
+                  for n in sorted(os.listdir(os.path.join(ROOT, d)))
+                  if n.endswith("_torch.py")]
     for d, _, names in os.walk(os.path.join(SRC, "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    assert os.path.join(ROOT, "scripts", "smoke_zoo_torch.py") in files
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f

@@ -13,8 +13,10 @@ package, on the CPU, at reduced width with float32 compute.
 * Every non-dense family through the ``Trainer`` with the launcher's
   data (``img``/``frames`` batches for vlm/audio), resumed from a
   checkpoint bit for bit.
-* The data-parallel decode of ``make_serve_step(mesh=)`` on (2, 2)
-  against the one-device decode.
+* The decode of ``make_serve_step(mesh=)`` on (2, 2), for every
+  family, against ``repro``'s ``decode_step`` and the port's
+  one-device decode: the weights split as their specs place them, the
+  cache as ``cache_pspecs`` places it.
 
 Tolerances, those of ``tests/test_torch_train.py``: loss 1e-5
 relative; each gradient within 1e-4 of its leaf's largest |gradient|
@@ -49,11 +51,12 @@ LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 LOGIT_TOL = 1e-4
 FAMILIES = ("hybrid", "vlm", "audio")
-#: the mesh cases: gradients of the hybrid family; decode of a dense
-#: model (its cache split over the batch) and of an SSM (conv and state
-#: split over the model axis too)
-GRAD_CASES = [((2, 2), "hybrid")]
-SERVE_CASES = [((2, 2), "dense"), ((2, 2), "ssm")]
+#: the mesh cases: gradients of the hybrid family; decode of every
+#: family (K/V caches split over the batch; an SSM's conv and state
+#: over the model axis too, the hybrid's both)
+GRAD_CASES = [((2, 2), "hybrid"), ((1, 4), "ssm-v67")]
+SERVE_CASES = [((2, 2), fam) for fam in ("dense", "ssm", "moe-ep", "hybrid",
+                                         "vlm", "audio")]
 DECODE_STEPS, CACHE_LEN = 3, 16
 
 
@@ -75,8 +78,9 @@ def setup(family: str):
     """(JAX config, port config, JAX params, port params): the port's
     seeded init (what the mesh ranks draw too), carried to JAX."""
     ct = ranks.config(family)
-    cj = dataclasses.replace(jregistry.reduced(ranks.FAMILIES[family][0]),
-                             compute_dtype="float32")
+    arch, kw = ranks.FAMILIES[family]
+    cj = dataclasses.replace(jregistry.reduced(arch),
+                             compute_dtype="float32", **kw)
     pt = api.init_params(ct, 0, "cpu")
     if family == "vlm":
         # the gates start at zero, which would zero every gradient of the
@@ -184,10 +188,51 @@ def test_hybrid_gradients_on_a_mesh_match_jax(on_mesh):
     assert g_pl == p_pl
 
 
+def test_vocab_split_unevenly_on_a_mesh_matches_jax(on_mesh):
+    """A vocabulary of 67 on a 4-wide model axis: the head's
+    partial logits are reduce-scattered onto the vocabulary (split 17,
+    17, 17, 16); the loss and every gradient equal JAX's."""
+    got = on_mesh[0]["grads"][((1, 4), "ssm-v67")]
+    want_loss, want = jax_grads("ssm-v67")
+    grads = [(tuple(k.split("/")), v) for k, v in got["grads"].items()]
+    assert check_grads(got["loss"], grads, want_loss, want) == []
+
+
+def jax_decode(family: str, tokens):
+    """(logits (B, steps, vocab), the final cache's leaves in the port's
+    order) of ``repro``'s ``decode_step``, jitted, from the seeded
+    parameters the mesh ranks draw (carried to JAX) and a zeroed
+    cache."""
+    cj, ct, _, _ = setup(family)
+    pj = jax.tree.map(jnp.asarray, convert.params_to_numpy(
+        api.init_params(ct, 0, "cpu")))
+    cache = japi.init_cache(cj, tokens.shape[0], CACHE_LEN)
+    fn = jax.jit(lambda p, c, t: japi.decode_step(cj, p, c, t))
+    logits = []
+    for t in range(tokens.shape[1]):
+        lg, cache = fn(pj, cache, jnp.asarray(tokens[:, t:t + 1]))
+        logits.append(np.asarray(lg))
+    leaves = []
+    optim.tree_map(lambda c: leaves.append(c.numpy()), convert.cache_from_numpy(
+        jax.tree.map(np.asarray, cache), "cpu", ct))
+    return np.stack(logits, 1), leaves
+
+
+def close_to(got: dict, logits, leaves) -> None:
+    assert np.max(np.abs(got["logits"] - logits)) < LOGIT_TOL
+    assert len(leaves) == len(got["cache"])
+    for a, (b_, _) in zip(leaves, got["cache"]):
+        assert a.shape == b_.shape and np.max(np.abs(a - b_),
+                                              initial=0) < LOGIT_TOL
+
+
 @pytest.mark.parametrize("shape,family", SERVE_CASES)
 def test_data_parallel_decode_on_a_mesh(on_mesh, shape, family):
+    """The mesh decode against ``repro``'s ``decode_step`` of the same
+    parameters and tokens, and against the port's one-device decode."""
     out, tokens = on_mesh
     got = out["serve"][(shape, family)]
+    close_to(got, *jax_decode(family, tokens))
     cfg = ranks.config(family)
     params = api.init_params(cfg, 0, "cpu")
     cache = api.init_cache(cfg, tokens.shape[0], CACHE_LEN, "cpu")
@@ -196,17 +241,15 @@ def test_data_parallel_decode_on_a_mesh(on_mesh, shape, family):
     for t in range(tokens.shape[1]):
         lg, cache = fn(params, cache, tokens[:, t:t + 1])
         want.append(lg.numpy())
-    assert np.max(np.abs(got["logits"] - np.stack(want, 1))) < LOGIT_TOL
     mine = []
     optim.tree_map(lambda c: mine.append(c.numpy()), cache)
-    assert len(mine) == len(got["cache"])
-    for a, (b_, placed) in zip(mine, got["cache"]):
-        assert a.shape == b_.shape and np.max(np.abs(a - b_),
-                                              initial=0) < LOGIT_TOL
+    close_to(got, np.stack(want, 1), mine)
     # the cache comes back placed as it went in: the SSM's conv and
     # state split over the model axis as cache_pspecs says
     if family == "ssm":
         assert any("Shard(dim=3)" in p for _, p in got["cache"])
+    if family == "hybrid":
+        assert any("Shard(dim=2)" in p for _, p in got["cache"])
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-130m",

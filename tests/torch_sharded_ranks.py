@@ -20,7 +20,9 @@ from repro_torch.train.loop import LoopConfig, Trainer
 #: family name -> (architecture, changes to its reduced config); every
 #: one in float32.  "dense-gq": 12 q heads and 3 KV heads, so that on a
 #: 4-wide model axis each rank's 3 q heads straddle two GQA groups and
-#: the sharded attention gathers q
+#: the sharded attention gathers q.  "ssm-v67": a vocabulary that does
+#: not divide a 4-wide model axis, so the head splits d and its
+#: logits are reduce-scattered onto an uneven vocabulary split
 FAMILIES = {
     "dense": ("tinyllama-1.1b", {}),
     "dense-gq": ("tinyllama-1.1b", {"n_heads": 12, "n_kv_heads": 3,
@@ -28,6 +30,7 @@ FAMILIES = {
     "moe-ep": ("qwen2-moe-a2.7b", {}),
     "moe-ftp": ("qwen2-moe-a2.7b", {"moe_mode": "ftp"}),
     "ssm": ("mamba2-130m", {}),
+    "ssm-v67": ("mamba2-130m", {"vocab": 67}),
     "hybrid": ("hymba-1.5b", {}),
     "vlm": ("llama-3.2-vision-11b", {}),
     "audio": ("whisper-small", {}),
