@@ -28,7 +28,8 @@ caught:
 4. kernel-K2 — K2 (flash attention: bf16 on the tensor cores, float32
    on the CUDA cores) against ``attention_ref`` at the four
    ``tests/test_kernels.py`` shapes, grouped-query cases at D 32, 64 and
-   128, S != T cases, the tinyllama-1.1b prefill shape (4, 32, 2048,
+   128, and at D 16 and 14 (padded to D 32: the reduced configs' head
+   dims) in both dtypes, S != T cases, the tinyllama-1.1b prefill shape (4, 32, 2048,
    64) and the D-128 prefill shapes of qwen2-moe-a2.7b (4, 16/16, 2048,
    128) and llama-3.2-vision-11b (4, 32/8, 2048, 128), bf16 causal,
    within 1e-5 (float32) and 5e-2 (bfloat16), one launch a call; at the
@@ -107,9 +108,10 @@ caught:
    mesh on a fake process group, fake tensors, nothing on the card), in
    subprocesses started with the script: the launcher for tinyllama-1.1b
    ``train_4k`` and ``noc-sim noc_43k`` on the 256-rank production mesh,
-   tinyllama-1.1b's B=4 S=2048 bf16 prefill and its B=4 decode step
-   (a 64-slot cache) on lm-sharded's (2, 2) mesh, and its B=1 S=4096
-   train step on one device; each record has its FLOPs, collective
+   tinyllama-1.1b's B=4 S=2048 bf16 prefill, its B=4 decode step (a
+   64-slot cache) and its float32 train step at B=8 S=256 on
+   lm-sharded's (2, 2) mesh, and its B=1 S=4096 train step on one
+   device; each record has its FLOPs, collective
    bytes by kind, memory a rank and the analytic figures (those equal to
    ``models.costs``), and is printed; lm-sharded holds its ranks'
    parameter bytes and what they hold for a decode step against the
@@ -175,7 +177,10 @@ caught:
    rank's own inputs (5e-2); (2)
    one float32 train step at B=8 S=256, its loss, grad norm and every
    gathered gradient against the one-device step (the lm-train
-   tolerances); (3) the step's parameters saved on (2, 2), restored on
+   tolerances), the step in the dry run's meter: its all-gather and
+   all-reduce bytes equal to the dry run's (2, 2) train cell's (10b;
+   the loss reduces over the split vocabulary, no logits gathered);
+   (3) the step's parameters saved on (2, 2), restored on
    (1, 4) and on one rank, every leaf equal bit for bit, and the next
    step's loss and grad norm on (1, 4) against one rank's; (4) each
    rank's parameter bytes equal to the dry run's prediction for the same
@@ -275,7 +280,13 @@ K2_SHAPES = [(1, 2, 2, 256, 64, "float32", True),
              (1, 32, 4, 1024, 128, "bfloat16", True),
              (2, 4, 1, 512, 32, "bfloat16", True),
              (2, 4, 2, 128, 64, "bfloat16", False, 384),
-             (1, 4, 1, 128, 128, "bfloat16", False, 384)]
+             (1, 4, 1, 128, 128, "bfloat16", False, 384),
+             # head dims no kernel is built for, run padded to D 32: the
+             # reduced configs' D 16 and D 14
+             (2, 4, 2, 256, 16, "bfloat16", True),
+             (2, 4, 2, 256, 16, "float32", True),
+             (1, 4, 2, 128, 14, "bfloat16", True),
+             (1, 4, 2, 128, 14, "float32", True)]
 PREFILL_SHAPE = (4, 32, 4, 2048, 64, "bfloat16", True)
 #: K2 at D 128 as models give it, B 4 x S 2048 prefills: qwen2-moe-a2.7b
 #: (16 heads, 16 KV heads) and llama-3.2-vision-11b's self layers (32
@@ -1198,16 +1209,22 @@ def phase_kernel_k2(dev):
                                                      flash_attention_cuda)
     from repro_torch.kernels.ref import attention_ref
 
+    # every case launched, kernel and plain version, before one
+    # synchronise
+    runs = []
     for shape in K2_SHAPES + [PREFILL_SHAPE, *D128_SHAPES]:
-        b, h, kv, s, d, dt, causal, *t = shape
+        causal = shape[6]
         q, k, v = k2_case(shape, dev)
         before = LAUNCHES.n
         got = flash_attention_cuda(q, k, v, causal=causal)
         if LAUNCHES.n != before + 1:
             fail(f"K2 counted {LAUNCHES.n - before} launches for one call "
                  f"at {shape}")
-        want = attention_ref(q, k, v, causal=causal)
-        torch.cuda.synchronize()
+        runs.append((shape, got, attention_ref(q, k, v, causal=causal)))
+        del q, k, v
+    torch.cuda.synchronize()
+    for shape, got, want in runs:
+        b, h, kv, s, d, dt, causal, *t = shape
         if not bool(torch.isfinite(got.float()).all()):
             fail(f"K2 output not finite at {shape}")
         err = float((got.float() - want.float()).abs().max())
@@ -1220,7 +1237,7 @@ def phase_kernel_k2(dev):
               f"{K2_TOL[dt]})")
         if shape == PREFILL_SHAPE:
             prefill_err = err
-        del q, k, v, got, want
+    del runs, got, want
 
     rec = k2_timed(PREFILL_SHAPE, dev, "tinyllama-1.1b prefill")
     for shape, what in zip(D128_SHAPES, ("qwen2-moe-a2.7b prefill, D 128",
@@ -2361,9 +2378,14 @@ def lm_sharded_rank(root: str) -> dict:
         p, o, gn = optim.apply_updates(opt, p, grads, o)
         return loss, grads, p, o, gn
 
-    (loss, grads, p1, o1, gn), out["step_ms"] = clock(
-        lambda: train_step(params, optim.init_opt(opt, params), b0))
+    o0 = optim.init_opt(opt, params)
+    # the step in the dry run's meter: its collectives
+    with Meter() as meter:
+        (loss, grads, p1, o1, gn), out["step_ms"] = clock(
+            lambda: train_step(params, o0, b0))
+    out["step_coll"] = dict(meter.collectives)
     out["loss"], out["gnorm"] = float(loss), float(gn)
+    del o0
     del params
     note(f"train step {out['step_ms']:.1f} ms")
     ref_g = {}
@@ -2439,8 +2461,10 @@ def phase_lm_sharded(dry: dict) -> list:
     sharing cuda:0; returns K2's launches in the prefill, by rank.  Each
     rank's parameter bytes must equal the dry run's prediction for the
     same mesh and prefill (``dry["lm-sharded"]``: ``mem.argument`` less
-    the inputs), and what it holds for a decode step the prediction for
-    the same mesh and decode (``dry["lm-sharded-decode"]``)."""
+    the inputs), what it holds for a decode step the prediction for
+    the same mesh and decode (``dry["lm-sharded-decode"]``), and the
+    float32 step's all-gathers and all-reduces the prediction for the
+    same mesh and step (``dry["lm-sharded-train"]``)."""
     import tempfile
 
     import numpy as np
@@ -2525,6 +2549,14 @@ def phase_lm_sharded(dry: dict) -> list:
           f"{[round(o['prefill_ms'], 3) for o in outs]} (first call "
           f"{[round(o['prefill_first_ms'], 1) for o in outs]}); card: "
           f"{card_line()}")
+    trn = dry["lm-sharded-train"]["collective_bytes"]
+    for o in outs:
+        got = o["step_coll"]
+        if any(got.get(k, 0) != trn.get(k, 0)
+               for k in ("all-gather", "all-reduce")):
+            fail(f"lm-sharded: rank {o['rank']}'s float32 step ran "
+                 f"collectives of {got} B, the dry run of the same mesh "
+                 f"and step predicts {trn}")
     rl = abs(o0["loss"] - o0["ref_loss"]) / abs(o0["ref_loss"])
     rg = abs(o0["gnorm"] - o0["ref_gnorm"]) / o0["ref_gnorm"]
     if not (rl <= TRAIN_LOSS_RTOL and rg <= TRAIN_GNORM_RTOL
@@ -2539,7 +2571,10 @@ def phase_lm_sharded(dry: dict) -> list:
           f"gradient max |diff| / max {o0['grad_worst']:.3e} over "
           f"{o0['grad_leaves']} leaves (tolerances {TRAIN_LOSS_RTOL}, "
           f"{TRAIN_GNORM_RTOL}, {TRAIN_GRAD_RTOL}); ms a step by rank "
-          f"{[round(o['step_ms'], 1) for o in outs]}; card: {card_line()}")
+          f"{[round(o['step_ms'], 1) for o in outs]} (in the dry run's "
+          f"meter); its collectives on rank 0 {o0['step_coll']} B, the "
+          f"all-gathers and all-reduces equal on every rank to the dry "
+          f"run's {trn}; card: {card_line()}")
     n14, n1, n = o0["restored_equal"]
     if n14 != n or n1 != n:
         fail(f"lm-sharded: of {n} restored leaves, {n14} equal the saved "
@@ -2564,25 +2599,30 @@ CLI_OWN_KEYS = ("wall_s", "scenarios_per_sec", "device",
                 "arbitration_kernel_launches")
 
 
-#: a dry-run cell of its own shape, in a subprocess: its record on the
-#: line that starts "RECORD "
+#: a dry-run cell of its own shape and config changes, in a subprocess:
+#: its record on the line that starts "RECORD "
 DRYRUN_CELL = (
-    "import json\n"
+    "import dataclasses, json\n"
+    "from repro_torch.configs import registry\n"
     "from repro_torch.configs.shapes import ShapeSpec\n"
     "from repro_torch.launch import dryrun\n"
-    "rec = dryrun.lm_cell(%r, ShapeSpec(%r, %d, %d, %r), %r)\n"
+    "cfg = dataclasses.replace(registry.get(%r), **%r)\n"
+    "rec = dryrun.lm_cell(%r, ShapeSpec(%r, %d, %d, %r), %r, cfg=cfg)\n"
     "print('RECORD ' + json.dumps(rec))\n")
 
 
 def dryrun_cells() -> dict:
-    """name -> (kind, seq, batch, mesh) of the dry-run cells the phases
-    hold their cards against: lm-sharded's prefill and decode on its
-    (2, 2) mesh, and lm-train's step at B 1 x S 4096 on one device (no
-    mesh)."""
+    """name -> (kind, seq, batch, mesh, config changes) of the dry-run
+    cells the phases hold their cards against: lm-sharded's prefill,
+    decode and float32 train step on its (2, 2) mesh, and lm-train's
+    step at B 1 x S 4096 on one device (no mesh)."""
     mesh = (SHLM_MESH, SHLM_AXES)
-    return {"lm-sharded": ("prefill", PREFILL_SEQ, PREFILL_BATCH, mesh),
-            "lm-sharded-decode": ("decode", SHLM_CACHE, PREFILL_BATCH, mesh),
-            "lm-train-4k": ("train", LONG_SEQ, 1, None)}
+    return {"lm-sharded": ("prefill", PREFILL_SEQ, PREFILL_BATCH, mesh, {}),
+            "lm-sharded-decode": ("decode", SHLM_CACHE, PREFILL_BATCH, mesh,
+                                  {}),
+            "lm-sharded-train": ("train", SHLM_SEQ, SHLM_BATCH, mesh,
+                                 {"compute_dtype": "float32"}),
+            "lm-train-4k": ("train", LONG_SEQ, 1, None, {})}
 
 
 def start_dryrun(out: str) -> dict:
@@ -2595,9 +2635,9 @@ def start_dryrun(out: str) -> dict:
     runs = {f"{a} {s}": ["-m", "repro_torch.launch.dryrun", "--arch", a,
                          "--shape", s, "--mesh", "single", "--out", out]
             for a, s in DRYRUN_CELLS}
-    for name, (kind, seq, batch, mesh) in dryrun_cells().items():
-        runs[name] = ["-c", DRYRUN_CELL % (LM_ARCH, name, seq, batch, kind,
-                                           mesh)]
+    for name, (kind, seq, batch, mesh, kw) in dryrun_cells().items():
+        runs[name] = ["-c", DRYRUN_CELL % (LM_ARCH, kw, LM_ARCH, name, seq,
+                                           batch, kind, mesh)]
     procs = {}
     try:
         for name, args in runs.items():
@@ -2664,7 +2704,7 @@ def phase_dryrun(procs: dict, t0: float, out: str) -> dict:
         if shp is not None:
             b, s = shp.global_batch, shp.seq_len
         else:
-            _, s, b, _ = dryrun_cells()[name]
+            _, s, b, _, _ = dryrun_cells()[name]
         want = costs.cell_flops(cfg, rec["kind"], b, s)
         if rec["analytic_flops_global"] != want or not rec["flops"] > 0 \
                 or rec["n_params"] != cfg.n_params():

@@ -14,9 +14,11 @@
 // What they compute: q (B, H, S, D), k and v (B, KV, T, D), all
 // contiguous; out (B, H, S, D) in q's dtype.  Head h reads K/V head
 // h / (H / KV) directly, so grouped-query attention needs no repeated copy
-// of K and V.  Logits are (q . k) / sqrt(D) in float32; with causal set,
-// key t is visible to query s when t <= s (S == T).  D is 32, 64 or 128;
-// S and T are multiples of 128.  Masked logits are -1e30, never -inf, so
+// of K and V.  Logits are (q . k) / sqrt(dh) in float32, dh the model's
+// head dim; with causal set, key t is visible to query s when t <= s
+// (S == T).  D is 32, 64 or 128: the wrapper pads another dh up to the
+// next D with zero columns of q, k and v, which add nothing to a score,
+// and cuts the output's zero columns.  S and T are multiples of 128.  Masked logits are -1e30, never -inf, so
 // no arithmetic yields NaN.  The output is acc / max(l, 1e-30).
 //
 // What bounds them: operations.  At the tinyllama-1.1b prefill shape
@@ -39,7 +41,7 @@
 //   layouts wgmma reads.
 // * S = Q.K^T: wgmma m64n128k16, both operands from shared memory, K
 //   K-major (no transpose), D/16 k-steps, float32 accumulators.
-// * Softmax in registers: p = 2^((s - m) log2(e)/sqrt(D)), one FMA and
+// * Softmax in registers: p = 2^((s - m) log2(e)/sqrt(dh)), one FMA and
 //   one ex2 a logit; the per-element causal mask only on the diagonal
 //   tile, which is taken first (key tiles run from the diagonal down to 0,
 //   and every row sees its own key there, so the running max is finite
@@ -224,8 +226,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int H, int KVH, int S, int Tk, int causal,
-                       cudaStream_t stream) {
+                       int B, int H, int KVH, int S, int Tk, int dh,
+                       int causal, cudaStream_t stream) {
   const int smem = 2 * BK * D * (int)sizeof(float);
   // above 48 KB (D = 128) dynamic shared memory must be asked for
   cudaError_t err = cudaFuncSetAttribute(
@@ -235,7 +237,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
     cudaGetLastError();  // clear it: the launch below is not made
     return err;
   }
-  const float scale = (float)(1.0 / sqrt((double)D));
+  const float scale = (float)(1.0 / sqrt((double)dh));
   const dim3 grid(S / BQ, H, B);
   flash_attention_f32_kernel<D><<<grid, BQ * D / DPT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -459,7 +461,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 // the keys past each row (the diagonal tile).  Updates the running max m
 // and this thread's share l of the row sum, returns in alpha the factor
 // that rescales the accumulator, and leaves p = 2^((s - m) sl2) in s, sl2
-// being log2(e) / sqrt(D).
+// being log2(e) / sqrt(dh).
 template <bool MASK>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
@@ -732,8 +734,8 @@ bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr,
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int KVH, int S, int Tk, int causal,
-                        cudaStream_t stream) {
+                        int B, int H, int KVH, int S, int Tk, int dh,
+                        int causal, cudaStream_t stream) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap qmap, kmap, vmap;
@@ -749,7 +751,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
     cudaGetLastError();  // clear it: the launch below is not made
     return err;
   }
-  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)dh));
   const dim3 grid(S / TILE, H, B);
   flash_attention_wgmma_kernel<D><<<grid, THREADS, smem, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, KVH, S, Tk,
@@ -759,11 +761,12 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 template <bool BF16>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int KVH, int S, int Tk, int D, int causal,
-                     cudaStream_t st) {
-#define FA_LAUNCH(DIM)                                                     \
-  return BF16 ? launch_bf16<DIM>(q, k, v, o, B, H, KVH, S, Tk, causal, st) \
-              : launch_f32<DIM>(q, k, v, o, B, H, KVH, S, Tk, causal, st)
+                     int B, int H, int KVH, int S, int Tk, int D, int dh,
+                     int causal, cudaStream_t st) {
+#define FA_LAUNCH(DIM)                                                   \
+  return BF16                                                            \
+      ? launch_bf16<DIM>(q, k, v, o, B, H, KVH, S, Tk, dh, causal, st)   \
+      : launch_f32<DIM>(q, k, v, o, B, H, KVH, S, Tk, dh, causal, st)
   switch (D) {
     case 32: FA_LAUNCH(32);
     case 64: FA_LAUNCH(64);
@@ -775,17 +778,22 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  The wrapper checks shapes, types,
+// dtype: 0 float32, 1 bfloat16.  D is the tensors' head dim (32, 64 or
+// 128), dh the head dim whose 1 / sqrt(dh) scales the logits (dh <= D;
+// the columns past dh are zero).  The wrapper checks shapes, types,
 // divisibility, contiguity and alignment before it calls this.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int KVH, int S, int T,
-                               int D, int dtype, int causal, void* stream) {
+                               int D, int dh, int dtype, int causal,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = launch_d<false>(q, k, v, o, B, H, KVH, S, T, D, causal, st);
+  if (dh < 1 || dh > D)
+    err = cudaErrorInvalidValue;
+  else if (dtype == 0)
+    err = launch_d<false>(q, k, v, o, B, H, KVH, S, T, D, dh, causal, st);
   else if (dtype == 1)
-    err = launch_d<true>(q, k, v, o, B, H, KVH, S, T, D, causal, st);
+    err = launch_d<true>(q, k, v, o, B, H, KVH, S, T, D, dh, causal, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -33,6 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.parallel.sharding import (P, distribute, placements,
                                            resolve_pspec)
 
+from .common import local_map, unit_dims_whole
 from .config import ModelConfig
 from .params import abstract_leaf, init_leaf, spec_leaf
 from .zoo import DP, cache_tree, forward, param_tree
@@ -166,19 +167,19 @@ def make_inputs(cfg: ModelConfig, kind: str, batch: int, seq: int,
 def _batch_on(cfg: ModelConfig, batch, dev: torch.device, mesh,
               kind: str):
     """The batch as tensors on ``dev``; with a mesh, as DTensors placed by
-    ``input_pspecs`` (a DTensor stays as it is)."""
+    ``input_pspecs`` (a DTensor keeps its placements), a dim of size 1
+    whole (``common.unit_dims_whole``)."""
     if mesh is None:
         return {k: _to(v, dev) for k, v in batch.items()}
     from torch.distributed.tensor import DTensor
     specs = input_pspecs(cfg, kind)
     out = {}
     for k, v in batch.items():
-        if isinstance(v, DTensor):
-            out[k] = v
-            continue
-        v = _to(v, dev)
-        spec = resolve_pspec(specs.get(k, P()), mesh, v.shape)
-        out[k] = distribute(v, mesh, placements(spec, mesh))
+        if not isinstance(v, DTensor):
+            v = _to(v, dev)
+            spec = resolve_pspec(specs.get(k, P()), mesh, v.shape)
+            v = distribute(v, mesh, placements(spec, mesh))
+        out[k] = v.redistribute(mesh, unit_dims_whole(v, v.placements))
     return out
 
 
@@ -187,21 +188,107 @@ def loss_fn(cfg: ModelConfig, params, batch, device=None,
     """Mean next-token cross entropy over the labels ``>= 0`` (0-d float32
     tensor, the same on every rank of a mesh).  ``params`` must already
     be on ``device`` (default ``cuda``).  The gold logit is taken by a
-    masked reduction over the vocabulary, as the JAX package takes it, so
-    that a vocabulary sharded over the mesh stays sharded."""
+    masked reduction over the vocabulary, as the JAX package takes it.
+    Logits split over the vocabulary stay split: each rank reduces its
+    own block and the mesh all-reduces (B, S) figures
+    (:func:`_vocab_parallel_nll`), as GSPMD reduces over the split
+    vocabulary in the JAX package."""
     dev = resolve_device(device)
     _check_params(params, dev)
     batch = _batch_on(cfg, batch, dev, mesh, "train")
     logits, _ = forward(cfg, params, batch, cache=None, mesh=mesh)
     labels = batch["labels"]
     lf = logits.float()
-    logz = torch.logsumexp(lf, dim=-1)
-    vidx = _vocab_iota(lf)
-    gold = torch.sum(torch.where(vidx == labels[..., None], lf, 0.0), dim=-1)
+    if _vocab_dims(lf):
+        nll, labels = _vocab_parallel_nll(lf, labels)
+    else:
+        logz = torch.logsumexp(lf, dim=-1)
+        vidx = _vocab_iota(lf)
+        gold = torch.sum(torch.where(vidx == labels[..., None], lf, 0.0),
+                         dim=-1)
+        nll = logz - gold
     mask = (labels >= 0).float()
-    loss = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
-                                                         min=1.0)
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return loss.full_tensor() if mesh is not None else loss
+
+
+def _vocab_dims(lf) -> list:
+    """The mesh dims of more than one rank that split the vocabulary
+    (the last dim) of the DTensor ``lf``; none for a plain tensor."""
+    if not hasattr(lf, "placements"):
+        return []
+    return [i for i, p in enumerate(lf.placements)
+            if p.is_shard() and p.dim == lf.ndim - 1
+            and lf.device_mesh.size(i) > 1]
+
+
+def _all_reduce(t: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``t`` reduced by ``op`` over each process group of ``groups`` in
+    turn, through the functional collective that DTensor calls too (so
+    that ``dist.stage_through_host`` routes it on gloo ranks sharing a
+    card)."""
+    import torch.distributed._functional_collectives as funcol
+    for g in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+    return t
+
+
+class _NLL(torch.autograd.Function):
+    """Per-token ``logsumexp(lf) - lf[label]`` (B, S) of one rank's block
+    ``lf`` (B, S, Vl) of float32 logits, the vocabulary split over
+    ``groups``; ``lo`` is the block's first vocabulary index.  The
+    running max, the sum of exponentials and the gold logit are
+    all-reduced as (B, S) tensors; the gradient is the block's softmax
+    less its one-hot, and needs no collective."""
+
+    @staticmethod
+    def forward(ctx, lf, labels, lo: int, groups):
+        m = _all_reduce(lf.amax(dim=-1), "max", groups)
+        # one block-sized temporary at a time, here and in the backward
+        se = _all_reduce((lf - m[..., None]).exp_().sum(dim=-1), "sum",
+                         groups)
+        logz = m + torch.log(se)
+        # labels < 0, and labels in another rank's block, hit nothing
+        idx = labels.long() - lo
+        hit = (idx >= 0) & (idx < lf.shape[-1])
+        idx = torch.where(hit, idx, 0)[..., None]
+        gold = torch.where(hit, lf.gather(-1, idx)[..., 0], 0.0)
+        gold = _all_reduce(gold, "sum", groups)
+        ctx.save_for_backward(lf, logz, idx, hit)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, logz, idx, hit = ctx.saved_tensors
+        grad = (lf - logz[..., None]).exp_()
+        grad.scatter_add_(-1, idx, -hit.to(grad.dtype)[..., None])
+        return grad.mul_(g[..., None]), None, None, None
+
+
+def _vocab_parallel_nll(lf, labels):
+    """(per-token cross entropy (B, S), the labels placed as it): of the
+    DTensor logits ``lf`` (B, S, V) split over the vocabulary, each rank
+    on its own block of it, which no collective gathers.  Uneven splits
+    take each rank's first index from DTensor's own chunking."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = lf.device_mesh
+    vdims = _vocab_dims(lf)
+    # the per-token figures keep the batch's and the sequence's splits
+    rows = [p if p in (Shard(0), Shard(1)) else Replicate()
+            for p in lf.placements]
+    labels = labels.redistribute(mesh, rows)
+    # this rank's first vocabulary index: DTensor's chunks (those of
+    # torch.chunk), mesh dim by mesh dim
+    lo, n = 0, lf.shape[-1]
+    for i in vdims:
+        c = -(-n // mesh.size(i))
+        start = min(mesh.get_coordinate()[i] * c, n)
+        lo, n = lo + start, min(c, n - start)
+    groups = [mesh.get_group(i) for i in vdims]
+    nll = local_map(lambda ll, lb: _NLL.apply(ll, lb, lo, groups), rows, lf,
+                    labels)
+    return nll, labels
 
 
 def _vocab_iota(lf: torch.Tensor) -> torch.Tensor:

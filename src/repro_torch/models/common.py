@@ -92,11 +92,24 @@ def shard_act(x: torch.Tensor, spec, mesh) -> torch.Tensor:
 
     Used to keep the residual stream sequence-sharded between layers so
     remat-saved activations shrink by the tensor-parallel degree; the
-    blocks gather it before their matmuls and reduce-scatter after."""
+    blocks gather it before their matmuls and reduce-scatter after.  A
+    dim of size 1 is left whole (:func:`unit_dims_whole`)."""
     if mesh is None:
         return x
     spec = resolve_pspec(spec, mesh, x.shape)
-    return x.redistribute(mesh, placements(spec, mesh, x.placements))
+    return x.redistribute(mesh, unit_dims_whole(
+        x, placements(spec, mesh, x.placements)))
+
+
+def unit_dims_whole(x: torch.Tensor, pl) -> list:
+    """The placements ``pl`` of ``x`` with each split of a dim of size 1
+    made whole.  Only a mesh axis of size 1 divides such a dim, and there
+    the split holds the same block; but torch's ``einsum`` moves a size-1
+    dim among its operands' dims with a ``permute``, and DTensor cannot
+    propagate a split of it through the ``view`` that follows (a batch of
+    one on a (1, 1) mesh)."""
+    return [Replicate() if isinstance(p, Shard) and x.shape[p.dim] == 1
+            else p for p in pl]
 
 
 def weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -285,18 +285,22 @@ def _embed(cfg: ModelConfig, params, tokens):
 
 def _unembed(cfg: ModelConfig, params, x):
     x = rows_whole(rmsnorm(x, params["ln_f"], cfg.norm_eps))
-    w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    logits = torch.einsum("bsd,dv->bsv", x, weight(w, x.dtype))
-    if is_sharded(logits):
+    w = weight(params["embed"].T if cfg.tie_embeddings else params["head"],
+               x.dtype)
+    if is_sharded(w) and Shard(0) in w.placements:
         # a head split over d (a vocabulary that does not divide the model
-        # axis) gives partial sums: reduce-scatter them onto the vocabulary.
-        # Left partial, DTensor places the loss's ops as it likes, and at
-        # the production meshes it split the sequence over the model axis,
-        # whose flatten in the head's backward (a _StridedShard) it cannot
-        # propagate through bmm
-        logits = logits.redistribute(logits.device_mesh, [
-            Shard(2) if p.is_partial() else p for p in logits.placements])
-    return logits
+        # axis) is split over the vocabulary instead, unevenly, before it
+        # multiplies.  Its logits would be partial sums: reduce-scattered
+        # onto the vocabulary, their gradient is gathered whole in the
+        # backward; left partial, DTensor splits the loss's sequence over
+        # the model axis at the production meshes, and cannot propagate
+        # that split through the head's backward.  (Another head is left
+        # alone: even a redistribute to the placements it has reduces its
+        # gradient in the backward, an all-reduce where the FSDP gather's
+        # backward would reduce-scatter.)
+        w = w.redistribute(w.device_mesh, [Shard(1) if p == Shard(0) else p
+                                           for p in w.placements])
+    return torch.einsum("bsd,dv->bsv", x, w)
 
 
 def _dense_layer(cfg, pl_, x, pos, cache, window=0):

@@ -15,6 +15,18 @@ each at the smallest size that shows its fault, on the CPU.
   device holds less ``temp`` than one layer's float32 scores,
   B x H x S x T x 4 bytes (104,857,600).  Without the per-chunk
   recompute it holds 406,891,784.
+* The loss on logits split over the vocabulary reduces over each
+  rank's block (F4): a reduced tinyllama-1.1b train cell on (1, 4) with
+  a vocabulary of 4,096, B 2 x S 256, all-gathers less, and holds less
+  ``temp``, than one whole float32 copy of its logits, B x S x V x 4
+  bytes (8,388,608).  Replicating them to take ``logsumexp`` it
+  all-gathered 9,371,648 and held 21,609,216.
+* A batch of one on a (1, 1) mesh trains (F5): torch's ``einsum``
+  moved the batch dim of size 1, split over the data axis of size 1,
+  with a ``permute``, and DTensor could not propagate that split
+  through the ``view`` that followed.  The smallest case: one-layer
+  reduced tinyllama-1.1b at B 1 x S 1; at S 2 and more it failed at
+  ``aten.view(Spec(bf16[S, 64, 1, 1, 1](S(2)R)), [1, S, 64])``.
 * A decode cell on (2, 2) gathers no weight whole: its all-gathers come
   to less than one copy of the parameters, and the largest is at most
   the largest leaf's share of the model axis (the data-axis gather of
@@ -24,6 +36,7 @@ each at the smallest size that shows its fault, on the CPU.
 import dataclasses
 import math
 
+import pytest
 import torch
 from torch.utils._pytree import tree_leaves
 
@@ -53,6 +66,25 @@ def test_blocked_attention_backward_holds_one_chunk_of_scores():
     assert rec["mesh"] == "one" and rec["devices"] == 1
     one_layer_scores = b * cfg.n_heads * s * s * 4
     assert rec["mem"]["temp"] < one_layer_scores, rec["mem"]
+
+
+def test_loss_gathers_no_logits_on_a_split_vocabulary():
+    cfg = dataclasses.replace(registry.reduced("tinyllama-1.1b"), vocab=4096)
+    b, s = 2, 256
+    rec = dryrun.lm_cell("tinyllama-1.1b", ShapeSpec("x", s, b, "train"),
+                         ((1, 4), ("data", "model")), cfg=cfg)
+    whole = b * s * cfg.vocab * 4
+    assert rec["collective_bytes"]["all-gather"] < whole, rec
+    assert rec["mem"]["temp"] < whole, rec["mem"]
+
+
+@pytest.mark.parametrize("s", [1, 2])
+def test_batch_of_one_on_a_unit_mesh_trains(s):
+    cfg = dataclasses.replace(registry.reduced("tinyllama-1.1b"), n_layers=1)
+    rec = dryrun.lm_cell("tinyllama-1.1b", ShapeSpec("x", s, 1, "train"),
+                         ((1, 1), ("data", "model")), cfg=cfg)
+    assert "error" not in rec and rec["flops"] > 0
+    assert rec["devices"] == 1 and rec["collective_bytes"] == {}
 
 
 def test_decode_cell_gathers_no_weight_whole():

@@ -38,6 +38,8 @@ from repro.models import api as japi
 
 from repro_torch import convert
 from repro_torch.configs import registry
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.ref import attention_ref
 from repro_torch.models import api, common
 
 torch.set_num_threads(1)
@@ -49,18 +51,19 @@ NEG = -1e30
 
 
 def emulate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool = True) -> torch.Tensor:
+            causal: bool = True, dh: int | None = None) -> torch.Tensor:
     """K2's bf16 kernel, step by step, for q (B, H, S, D) and k, v
-    (B, KV, T, D) in bf16; returns (B, H, S, D) in bf16."""
+    (B, KV, T, D) in bf16, the logits scaled by ``1 / sqrt(dh)`` (default
+    D); returns (B, H, S, D) in bf16."""
     b, h, s, d = q.shape
     t = k.shape[2]
-    assert q.dtype == torch.bfloat16 and d in (32, 64, 128)
+    assert q.dtype == torch.bfloat16 and d in fa.HEAD_DIMS
     assert s % TILE == 0 and t % TILE == 0 and (s == t or not causal)
     rep = h // k.shape[1]
     k = k.repeat_interleave(rep, dim=1).float()
     v = v.repeat_interleave(rep, dim=1).float()
     qf = q.float()
-    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    scale_log2 = math.log2(math.e) / math.sqrt(dh or d)
     out = torch.empty_like(q)
     for qt in range(s // TILE):
         rows = slice(qt * TILE, (qt + 1) * TILE)
@@ -146,3 +149,94 @@ def test_reduced_tinyllama_forward_through_the_tiles_matches_jax(
     assert len(calls) == cfg_t.n_layers
     err = np.max(np.abs(np.asarray(want, np.float32) - got.float().numpy()))
     assert err < 3e-2, err
+
+
+@pytest.mark.parametrize("d", [14, 16, 48, 96])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dims_without_an_instance_run_padded(d, dtype):
+    """A head dim no kernel is built for runs at the next one up: q, k
+    and v padded with zero columns (``fa.pad_head_dim``), the logits
+    scaled by the true D, the output's zero columns cut
+    (``fa.at_kernel_head_dim``, the wrapper's own path).  The kernel is
+    stood in for by ``attention_ref`` with the scale passed (float32)
+    and by the bf16 kernel's emulation (bfloat16), against the JAX
+    package's ``attention_ref`` at the true D (1e-5, 5e-2)."""
+    b, h, kv, s = 2, 4, 2, 256
+    rng = np.random.default_rng(d)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    q, k, v = (jnp.asarray(rng.standard_normal(sh), jdt) for sh in
+               ((b, h, s, d), (b, kv, s, d), (b, kv, s, d)))
+    rep = h // kv
+    want = jax_attention_ref(q, jnp.repeat(k, rep, axis=1),
+                             jnp.repeat(v, rep, axis=1), causal=True)
+    if dtype == "float32":
+        tq, tk, tv = (torch.from_numpy(np.asarray(x)) for x in (q, k, v))
+        kernel = lambda q_, k_, v_, c, dh: attention_ref(  # noqa: E731
+            q_, k_, v_, c, scale=1.0 / (dh ** 0.5))
+        tol = 1e-5
+    else:
+        tq, tk, tv = (bf16_tensor(x) for x in (q, k, v))
+        kernel = emulate
+        tol = 5e-2
+    padded = fa.pad_head_dim(tq, tk, tv)
+    assert padded[0].shape[-1] == fa.kernel_head_dim(d) > d
+    assert all(not p[..., d:].any() for p in padded)
+    got = fa.at_kernel_head_dim(kernel, tq, tk, tv, True)
+    assert got.shape == tq.shape and got.is_contiguous()
+    err = np.max(np.abs(np.asarray(want, np.float32) - got.float().numpy()))
+    assert err < tol, err
+    # the head dims the kernels are built for run as they are
+    assert fa.pad_head_dim(*padded)[0] is padded[0]
+
+
+def _sent_to_k2(cfg) -> list:
+    """The (q, k, v) shapes and ``causal`` of every call that
+    ``common.attention`` routes to K2 in a B 1 x S 128 prefill of
+    ``cfg`` (fake tensors: no storage at published widths)."""
+    from repro_torch.launch.dryrun import fake_tensors
+    calls = []
+
+    def record(q, k, v, causal=True):
+        calls.append((tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                      causal))
+        return attention_ref(q, k, v, causal=causal)
+
+    with fake_tensors(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(common.kops, "attention", record)
+        params = api.init_params(cfg, 0, "cpu")
+        batch = {k: torch.zeros(t.shape, dtype=t.dtype) for k, t in
+                 api.input_specs(cfg, "prefill", 1, TILE).items()}
+        api.forward_logits(cfg, params, batch, device="cpu")
+    return calls
+
+
+@pytest.mark.parametrize("size", ["reduced", "published"])
+def test_every_shape_the_route_sends_passes_the_kernel_checks(size):
+    """For every registry config, reduced and published: each call the
+    kernel route makes at S = T = 128 passes ``flash_attention_cuda``'s
+    shape checks (``fa.check_shapes``; the route sends S and T that are
+    multiples of 128, and the checks ask no more of them).  The reduced
+    configs' D 16 and 14 are among them; D above 128 still raises."""
+    dims = set()
+    for arch in registry.ARCH_IDS:
+        cfg = registry.reduced(arch) if size == "reduced" \
+            else registry.get(arch)
+        # every kind of layer, not every layer: one vlm group of layers,
+        # two layers of the others (the hybrid's first is global)
+        depth = max(cfg.cross_attn_interval, 2)
+        cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers, depth),
+                                  global_layers=tuple(
+                                      i for i in cfg.global_layers
+                                      if i < depth))
+        if cfg.family == "hybrid":
+            assert 0 < len(cfg.global_layers) < cfg.n_layers, arch
+        calls = _sent_to_k2(cfg)
+        # every family but the SSM has a layer on the kernel route
+        assert bool(calls) == (cfg.family != "ssm"), arch
+        for qs, ks, vs, causal in calls:
+            fa.check_shapes(qs, ks, vs, causal)
+            dims.add(qs[-1])
+    assert dims == ({14, 16} if size == "reduced" else {64, 128})
+    with pytest.raises(ValueError, match="above 128"):
+        fa.check_shapes((1, 2, 128, 160), (1, 2, 128, 160),
+                        (1, 2, 128, 160), True)

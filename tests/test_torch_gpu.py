@@ -174,12 +174,20 @@ def test_sweep_knob_views_on_the_card_equal_solo_runs(cuda):
     (2, 4, 1, 512, 32, torch.bfloat16, True, None),  # GQA at D 32
     (2, 4, 2, 128, 64, torch.bfloat16, False, 384),  # S != T
     (1, 4, 1, 128, 128, torch.bfloat16, False, 384),
+    # head dims with no instance, padded to the next: the reduced configs'
+    (2, 4, 2, 256, 16, torch.bfloat16, True, None),
+    (2, 4, 2, 256, 16, torch.float32, True, None),
+    (1, 4, 2, 128, 14, torch.bfloat16, True, None),
+    (1, 4, 2, 128, 14, torch.float32, True, None),
+    (2, 4, 2, 256, 48, torch.float32, True, None),
+    (2, 4, 2, 256, 96, torch.bfloat16, False, 384),
 ])
 def test_flash_attention_kernel_matches_plain_version(cuda, b, h, kv, s, d,
                                                       dtype, causal, t):
     """K2 against attention_ref at test_kernels.py's shapes and
-    tolerances (1e-5 float32, 5e-2 bfloat16), and more bf16 shapes for
-    the tensor-core kernel (``t`` None: T = S)."""
+    tolerances (1e-5 float32, 5e-2 bfloat16), more bf16 shapes for
+    the tensor-core kernel, and head dims run padded (``t`` None: T =
+    S)."""
     t = s if t is None else t
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape)).to(cuda, dtype)
@@ -198,7 +206,7 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     x = z(1, 2, 128, 64)
     before = flash_attention.LAUNCHES.n
     for bad, err in (((x.double(),) * 3, TypeError),
-                     ((z(1, 2, 128, 48),) * 3, ValueError),      # D
+                     ((z(1, 2, 128, 160),) * 3, ValueError),     # D
                      ((z(1, 2, 96, 64),) * 3, ValueError),       # S % 128
                      ((z(1, 3, 128, 64), x, x), ValueError),     # H % KV
                      ((x, x, z(1, 2, 256, 64)), ValueError),     # k != v

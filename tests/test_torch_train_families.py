@@ -13,6 +13,10 @@ package, on the CPU, at reduced width with float32 compute.
 * Every non-dense family through the ``Trainer`` with the launcher's
   data (``img``/``frames`` batches for vlm/audio), resumed from a
   checkpoint bit for bit.
+* The loss on logits split over the vocabulary, unevenly (67 on a
+  4-wide model axis) and with a quarter of the labels masked: each rank
+  reduces its own block (``api._vocab_parallel_nll``), against
+  ``jax.value_and_grad``.
 * The decode of ``make_serve_step(mesh=)`` on (2, 2), for every
   family, against ``repro``'s ``decode_step`` and the port's
   one-device decode: the weights split as their specs place them, the
@@ -54,17 +58,25 @@ FAMILIES = ("hybrid", "vlm", "audio")
 #: the mesh cases: gradients of the hybrid family; decode of every
 #: family (K/V caches split over the batch; an SSM's conv and state
 #: over the model axis too, the hybrid's both)
-GRAD_CASES = [((2, 2), "hybrid"), ((1, 4), "ssm-v67")]
+GRAD_CASES = [((2, 2), "hybrid"), ((1, 4), "ssm-v67"),
+              ((1, 4), "dense-v67")]
+#: the share of labels set to -1 (masked), by family; else three
+DROP = {"dense-v67": 0.25}
 SERVE_CASES = [((2, 2), fam) for fam in ("dense", "ssm", "moe-ep", "hybrid",
                                          "vlm", "audio")]
 DECODE_STEPS, CACHE_LEN = 3, 16
 
 
-def batch_for(cfg, seed: int = 0):
+def batch_for(cfg, seed: int = 0, drop: float = 0.0):
+    """A train batch; the first three labels masked, or with ``drop``
+    about that share of them."""
     rng = np.random.default_rng(seed)
     b = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
          "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
-    b["labels"][0, :3] = -1
+    if drop:
+        b["labels"][rng.random((B, S)) < drop] = -1
+    else:
+        b["labels"][0, :3] = -1
     for fam, key, n in (("vlm", "img", cfg.n_img_tokens),
                         ("audio", "frames", cfg.n_audio_frames)):
         if cfg.family == fam:
@@ -96,7 +108,7 @@ def jax_grads(family: str):
     """(loss, gradient tree as numpy) of ``jax.value_and_grad`` of
     ``repro``'s ``loss_fn``, jitted, from the shared parameters."""
     cj, _, pj, _ = setup(family)
-    b = batch_for(cj)
+    b = batch_for(cj, drop=DROP.get(family, 0.0))
     fn = jax.jit(jax.value_and_grad(lambda p, x: japi.loss_fn(cj, p, x)))
     loss, g = fn(pj, {k: jnp.asarray(v) for k, v in b.items()})
     return float(loss), jax.tree.map(np.asarray, g)
@@ -164,7 +176,7 @@ def test_zero_gradient_survives_remat_and_bf16_casts():
 @pytest.fixture(scope="module")
 def on_mesh(tmp_path_factory):
     root = tmp_path_factory.mktemp("train_families")
-    batches = {fam: [batch_for(ranks.config(fam))]
+    batches = {fam: [batch_for(ranks.config(fam), drop=DROP.get(fam, 0.0))]
                for fam in {f for _, f in GRAD_CASES}}
     tokens = np.random.default_rng(5).integers(
         0, 256, (4, DECODE_STEPS)).astype(np.int32)
@@ -194,6 +206,19 @@ def test_vocab_split_unevenly_on_a_mesh_matches_jax(on_mesh):
     17, 17, 16); the loss and every gradient equal JAX's."""
     got = on_mesh[0]["grads"][((1, 4), "ssm-v67")]
     want_loss, want = jax_grads("ssm-v67")
+    grads = [(tuple(k.split("/")), v) for k, v in got["grads"].items()]
+    assert check_grads(got["loss"], grads, want_loss, want) == []
+
+
+def test_loss_on_an_uneven_vocabulary_split_matches_jax(on_mesh):
+    """A dense model with a vocabulary of 67 on a 4-wide model axis (17,
+    17, 17, 16) and about a quarter of the labels masked: the loss
+    reduces over each rank's block of the vocabulary and all-reduces
+    (B, S) figures; the loss and every gradient equal JAX's."""
+    b = batch_for(ranks.config("dense-v67"), drop=DROP["dense-v67"])
+    assert 0.15 < np.mean(b["labels"] < 0) < 0.35
+    got = on_mesh[0]["grads"][((1, 4), "dense-v67")]
+    want_loss, want = jax_grads("dense-v67")
     grads = [(tuple(k.split("/")), v) for k, v in got["grads"].items()]
     assert check_grads(got["loss"], grads, want_loss, want) == []
 

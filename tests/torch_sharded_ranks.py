@@ -20,11 +20,13 @@ from repro_torch.train.loop import LoopConfig, Trainer
 #: family name -> (architecture, changes to its reduced config); every
 #: one in float32.  "dense-gq": 12 q heads and 3 KV heads, so that on a
 #: 4-wide model axis each rank's 3 q heads straddle two GQA groups and
-#: the sharded attention gathers q.  "ssm-v67": a vocabulary that does
-#: not divide a 4-wide model axis, so the head splits d and its
-#: logits are reduce-scattered onto an uneven vocabulary split
+#: the sharded attention gathers q.  "ssm-v67", "dense-v67": a
+#: vocabulary that does not divide a 4-wide model axis, so the head
+#: splits d and its logits are reduce-scattered onto an uneven
+#: vocabulary split, on which the loss reduces
 FAMILIES = {
     "dense": ("tinyllama-1.1b", {}),
+    "dense-v67": ("tinyllama-1.1b", {"vocab": 67}),
     "dense-gq": ("tinyllama-1.1b", {"n_heads": 12, "n_kv_heads": 3,
                                     "d_head": 16}),
     "moe-ep": ("qwen2-moe-a2.7b", {}),
