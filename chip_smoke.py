@@ -35,7 +35,14 @@ caught:
    within 1e-5 (float32) and 5e-2 (bfloat16), one launch a call; at the
    three prefill shapes the kernel, the plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never called
-   by the port) are timed;
+   by the port) are timed (CUDA events, the card held busy while the host
+   issues the calls; torch.profiler's device times beside them, since on
+   some machines they read about half); and the float32 kernel (off the
+   main path) at
+   the tinyllama-1.1b prefill shape, checked within 1e-5 and timed against
+   its bound at the float32 CUDA-core rate and SDPA in float32 (K and V
+   expanded to the query heads), the profile naming
+   ``flash_attention_f32_kernel``;
 5. wedge     — the former S14 wedge (16x16, distributed directory,
    ``app_trace_loop(cfg, "matmul", 20, 0)``) run to completion on the
    card through ``run``; its statistics must equal the port's own CPU run
@@ -78,9 +85,11 @@ caught:
    smoke set (4x4 and 8x8, ``equake``,
    seeds 0 and 1, 10 refs, distributed directory) through
    ``compile_plan`` + ``execute_plan`` on the card: the plan describes
-   itself as the file's does (2 buckets), every scenario finishes, and
-   the aggregate network health equals the file's ``plan.net.*`` values
-   at their rounding;
+   itself as the file's does (2 buckets), every scenario finishes, the
+   port's ``repro_torch.bench.collect.health_metrics`` of the run equal
+   the file's ``plan.net.*`` metrics (read with the port's
+   ``BenchReport.read``) exactly, and ``compare_reports`` of the file's
+   against the fresh ones passes (its findings printed);
 7. lm-prefill — tinyllama-1.1b at full width (22 layers, seeded random
    parameters from the port's own init, float32, bf16 compute), the
    prefill step at B=4, S=2048: K2 launches exactly 22 times, the logits
@@ -293,10 +302,20 @@ PREFILL_SHAPE = (4, 32, 4, 2048, 64, "bfloat16", True)
 #: heads, 8 KV heads); timed against the kernel's bound and SDPA
 D128_SHAPES = ((4, 16, 16, 2048, 128, "bfloat16", True),
                (4, 32, 8, 2048, 128, "bfloat16", True))
+#: K2's float32 kernel at the tinyllama-1.1b prefill shape: off the main
+#: path (the compute dtype is bf16), checked and timed against its bound
+#: at the float32 CUDA-core rate and against SDPA in float32
+F32_PREFILL_SHAPE = (4, 32, 4, 2048, 64, "float32", True)
 #: test_kernels.py's tolerances of the flash kernel against attention_ref
 K2_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
-#: the bf16 tensor-core kernel's symbol, as the profiler names it
+#: cycles the card spins before a held timing (``event_ms(hold=True)``):
+#: ~50 ms at the H100's 1,980 MHz, far longer than the host takes to
+#: issue 20 K2 calls
+HOLD_CYCLES = 10 ** 8
+#: the kernels' symbols, as the profiler names them: bf16 on the tensor
+#: cores, float32 on the CUDA cores
 K2_BF16_SYMBOL = "flash_attention_wgmma_kernel"
+K2_F32_SYMBOL = "flash_attention_f32_kernel"
 
 LM_ARCH = "tinyllama-1.1b"
 PREFILL_BATCH, PREFILL_SEQ = 4, 2048
@@ -374,11 +393,6 @@ SWEEP_SCENARIOS = ((0, {}), (0, {"migration_enabled": False}),
 PLAN_MESHES, PLAN_SEEDS, PLAN_APP, PLAN_REFS = (((4, 4), (8, 8)), (0, 1),
                                                "equake", 10)
 PLAN_MAX_CYCLES, PLAN_CHUNK = 20_000, 8
-#: the network-health values BENCH_plan.json gates, with the rounding
-#: repro.bench.collect.health_metrics gives them (None: an exact count)
-PLAN_NET = {"deflection_rate": 6, "hops_per_flit": 4,
-            "deflections_per_flit": 4, "drops_recovered": None,
-            "stray_responses": None}
 #: the sharded phase's grids: one NCCL rank; a 2x2 spatial split and a
 #: (2, 2, 1) composed grid, each on four gloo ranks sharing cuda:0
 SHARDED_SOLO, SHARDED_SPLIT, SHARDED_COMPOSED = (1, 1, 1), (1, 2, 2), \
@@ -449,17 +463,21 @@ def sweep_spec():
         ScenarioSpec("random", seed, 8, **kw) for seed, kw in SWEEP_SCENARIOS))
 
 
-def event_ms(fn, iters: int) -> float:
+def event_ms(fn, iters: int, hold: bool = False) -> float:
     """Mean milliseconds per call of ``fn`` on the card's timeline, timed
     with CUDA events over ``iters`` back-to-back calls after a warm-up.
     Where the host issues work slower than the card runs it, this is the
-    host's issue time."""
+    host's issue time, unless ``hold``: then the card spins for
+    HOLD_CYCLES before the first event, while the host issues every
+    call, and the time is the card's own."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -1116,27 +1134,29 @@ def phase_sharded(sweep_got) -> int:
 
 
 def phase_plan(dev) -> int:
-    """BENCH_plan.json's smoke set through the planner on the card;
-    returns the fused Phase-2 launches of the plan's run."""
+    """BENCH_plan.json's smoke set through the planner on the card, its
+    network health collected and gated by the port's ``bench``; returns
+    the fused Phase-2 launches of the plan's run."""
     import torch
+    from repro_torch.bench import (BenchReport, compare_reports, gate_passes,
+                                   render_findings)
+    from repro_torch.bench.collect import health_metrics
     from repro_torch.core.config import SimConfig
     from repro_torch.core.engine import (compile_plan, execute_plan,
                                          make_scenario)
-    from repro_torch.core.sim import aggregate_stats, network_health
     from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
 
-    with open(os.path.join(ROOT, "BENCH_plan.json")) as f:
-        bench = json.load(f)
-    want_net = {m["name"].split(".")[-1]: m["value"] for m in bench["metrics"]
-                if m["name"].startswith("plan.net.")}
+    bench = BenchReport.read(os.path.join(ROOT, "BENCH_plan.json"))
+    want = BenchReport("plan", metrics=[m for m in bench.metrics
+                                        if m.name.startswith("plan.net.")])
     base = SimConfig(centralized_directory=False, max_cycles=PLAN_MAX_CYCLES)
     scenarios = [make_scenario(base, r, c, PLAN_APP, seed, PLAN_REFS)
                  for r, c in PLAN_MESHES for seed in PLAN_SEEDS]
     plan = compile_plan(scenarios)
     desc = plan.describe()
-    if desc != bench["raw"]["planned_sweep"]["plan"] or desc["n_buckets"] != 2:
+    if desc != bench.raw["planned_sweep"]["plan"] or desc["n_buckets"] != 2:
         fail(f"plan: {desc} differs from BENCH_plan.json's plan "
-             f"{bench['raw']['planned_sweep']['plan']}")
+             f"{bench.raw['planned_sweep']['plan']}")
     LAUNCHES.reset()
     ARB_LAUNCHES.reset()
     t0 = time.perf_counter()
@@ -1152,19 +1172,31 @@ def phase_plan(dev) -> int:
         fail(f"plan: {launches} fused Phase-2 launches and {arb_launches} "
              f"standalone arbitrations, expected one a scenario-step "
              f"({steps}) and none")
-    net = network_health(aggregate_stats(got))
-    for key, places in PLAN_NET.items():
-        val = net[key] if places is None else round(net[key], places)
-        if val != want_net[key]:
-            fail(f"plan: {key} {val} differs from BENCH_plan.json's "
-                 f"{want_net[key]}")
+    # the collector rounds as the file's writer did: every plan.net.*
+    # metric equal to the file's, then the gate over them
+    fresh = BenchReport("plan", metrics=health_metrics(
+        got, "plan.net", tags={"app": PLAN_APP}))
+    if want.names() != fresh.names() or len(want.names()) != 5:
+        fail(f"plan: plan.net.* metrics {fresh.names()}, BENCH_plan.json "
+             f"has {want.names()}")
+    for m in want.metrics:
+        if fresh.metric(m.name) != m:
+            fail(f"plan: {fresh.metric(m.name)} differs from "
+                 f"BENCH_plan.json's {m}")
+    findings = compare_reports(want, fresh)
+    print(render_findings("plan", findings))
+    if not gate_passes(findings):
+        fail("plan: compare_reports fails plan.net.* against "
+             "BENCH_plan.json")
+    net = {m.name: m.value for m in fresh.metrics}
     print(f"plan: {len(got)} scenarios in {desc['n_buckets']} buckets "
           f"({[(b['rows'], b['cols'], b['batch']) for b in desc['buckets']]}"
           f"), plan == BENCH_plan.json's, all finished (cycles "
-          f"{[g['cycles'] for g in got]}); network health "
-          f"{ {k: net[k] for k in PLAN_NET} } == BENCH_plan.json plan.net.* "
-          f"at its rounding; fused Phase-2 launches {launches}, standalone "
-          f"arbitration {arb_launches}; {wall:.3f} s")
+          f"{[g['cycles'] for g in got]}); repro_torch.bench.collect."
+          f"health_metrics {net} == BENCH_plan.json plan.net.*, "
+          f"compare_reports passes; fused "
+          f"Phase-2 launches {launches}, standalone arbitration "
+          f"{arb_launches}; {wall:.3f} s")
     return launches
 
 
@@ -1193,7 +1225,7 @@ def k2_case(shape, dev, seed: int = 0):
     t = t[0] if t else s
     dtype = getattr(torch, dt)
     shapes = ((b, h, s, d), (b, kv, t, d), (b, kv, t, d))
-    if shape == PREFILL_SHAPE or shape in D128_SHAPES:
+    if shape in (PREFILL_SHAPE, F32_PREFILL_SHAPE) or shape in D128_SHAPES:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return [torch.randn(sh, generator=gen, device=dev).to(dtype)
                 for sh in shapes]
@@ -1212,7 +1244,8 @@ def phase_kernel_k2(dev):
     # every case launched, kernel and plain version, before one
     # synchronise
     runs = []
-    for shape in K2_SHAPES + [PREFILL_SHAPE, *D128_SHAPES]:
+    for shape in K2_SHAPES + [PREFILL_SHAPE, F32_PREFILL_SHAPE,
+                              *D128_SHAPES]:
         causal = shape[6]
         q, k, v = k2_case(shape, dev)
         before = LAUNCHES.n
@@ -1237,6 +1270,8 @@ def phase_kernel_k2(dev):
               f"{K2_TOL[dt]})")
         if shape == PREFILL_SHAPE:
             prefill_err = err
+        if shape == F32_PREFILL_SHAPE:
+            f32_err = err
     del runs, got, want
 
     rec = k2_timed(PREFILL_SHAPE, dev, "tinyllama-1.1b prefill")
@@ -1244,6 +1279,8 @@ def phase_kernel_k2(dev):
                                          "llama-3.2-vision-11b prefill, "
                                          "D 128")):
         k2_timed(shape, dev, what)
+    f32 = k2_timed(F32_PREFILL_SHAPE, dev, "tinyllama-1.1b prefill shape, "
+                   "float32 (off the main path)")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -1252,67 +1289,93 @@ def phase_kernel_k2(dev):
         "launches": None,
         "max_abs_err": prefill_err,
         **rec,
+        **{f"float32_{k}": x for k, x in f32.items()},
+        "float32_max_abs_err": f32_err,
     }
 
 
 def k2_timed(shape, dev, what: str) -> dict:
     """K2, its plain version and ``scaled_dot_product_attention`` (the
-    library yardstick, never called by the port) timed at a causal bf16
-    shape; prints one line and returns the timing keys of K2's record."""
+    library yardstick, never called by the port) timed at a causal shape
+    in the shape's dtype, bf16 or float32; prints one line and returns
+    the timing keys of K2's record (float32: also the launches the timing
+    made)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (F32_LAUNCHES,
+                                                     flash_attention_cuda)
     from repro_torch.kernels.ref import attention_ref
 
     b, h, kv, s, d, dt, causal = shape
+    f32 = dt == "float32"
+    symbol = K2_F32_SYMBOL if f32 else K2_BF16_SYMBOL
     q, k, v = k2_case(shape, dev, seed=1)
+    f32_before = F32_LAUNCHES.n
     kernel = lambda: flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
     plain = lambda: attention_ref(q, k, v, causal=True)          # noqa: E731
-    library = lambda: F.scaled_dot_product_attention(           # noqa: E731
-        q, k, v, is_causal=True, enable_gqa=True)
+    if f32:
+        # K and V expanded to H heads before the timed call, so that a
+        # fused backend can take float32 without grouped-query support
+        ke, ve = (x.repeat_interleave(h // kv, dim=1) for x in (k, v))
+        library = lambda: F.scaled_dot_product_attention(       # noqa: E731
+            q, ke, ve, is_causal=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(       # noqa: E731
+            q, k, v, is_causal=True, enable_gqa=True)
     lib_err = float((library().float() - plain().float()).abs().max())
-    call_ms = event_ms(kernel, 20)
-    plain_call_ms = event_ms(plain, 3)
-    lib_call_ms = event_ms(library, 20)
+    # the card held while the host issues the calls: each time is the
+    # card's.  torch.profiler's device times are printed beside: on some
+    # machines they read about half of what CUDA events and the host's
+    # clock agree on
+    ms = event_ms(kernel, 20, hold=True)
+    plain_ms = event_ms(plain, 3, hold=True)
+    lib_ms = event_ms(library, 20, hold=True)
     iters = 10
     _, kern = device_profile(kernel, iters)
     _, pl = device_profile(plain, 3)
     _, lib = device_profile(library, iters)
     mine = {n: v for n, v in kern.items() if "flash_attention" in n}
-    if mine and not any(K2_BF16_SYMBOL in n for n in mine):
-        fail(f"K2 at {shape} ran {sorted(mine)}, not {K2_BF16_SYMBOL}")
+    if mine and not any(symbol in n for n in mine):
+        fail(f"K2 at {shape} ran {sorted(mine)}, not {symbol}")
     if mine and pl and lib:
-        ms = sum(v[0] for v in mine.values()) / iters
-        plain_ms = sum(v[0] for v in pl.values()) / 3
-        lib_ms = sum(v[0] for v in lib.values()) / iters
+        prof = (sum(v[0] for v in mine.values()) / iters,
+                sum(v[0] for v in pl.values()) / 3,
+                sum(v[0] for v in lib.values()) / iters)
+        off = max(abs(p / e - 1) for p, e in zip(prof, (ms, plain_ms,
+                                                        lib_ms)))
+        prof_txt = (f"kernel {prof[0]:.6f}, plain {prof[1]:.6f}, library "
+                    f"{prof[2]:.6f} ms, at most {off:.1%} from the events")
     else:
-        print("kernel-K2: torch.profiler recorded no device time; "
-              "reporting the CUDA-event times")
-        ms, plain_ms, lib_ms = call_ms, plain_call_ms, lib_call_ms
+        prof_txt = "no device time recorded"
     # causal S == T: query s sees s + 1 keys; two products of 2*D FLOP a
-    # (query, key) pair; each input read once, the output written once
+    # (query, key) pair, at the tensor cores' bf16 rate or the CUDA
+    # cores' float32 rate; each input read once, the output written once
     pairs = s * (s + 1) // 2 if causal else s * s
     flop = 4 * d * pairs * b * h
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    flop_ms = flop / BF16_FLOP_PER_S * 1e3
+    rate, rate_name = ((SCALAR_OPS_PER_S, "67 TFLOP/s float32") if f32
+                       else (BF16_FLOP_PER_S, "989 TFLOP/s bf16"))
+    flop_ms = flop / rate * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"kernel-K2: {what} (B, H, KV, S, D) = {(b, h, kv, s, d)} device "
-          f"time (torch.profiler): kernel "
-          f"{ms:.6f} ms ({flop / ms / 1e9:.1f} TFLOP/s), plain "
-          f"{plain_ms:.6f} ms ({len(pl)} kernels), "
+    print(f"kernel-K2: {what} (B, H, KV, S, D) = {(b, h, kv, s, d)} {dt} "
+          f"per call on the card (CUDA events, the card held while the "
+          f"host issues): kernel {ms:.6f} ms ({flop / ms / 1e9:.1f} "
+          f"TFLOP/s), plain {plain_ms:.6f} ms ({len(pl)} kernels), "
           f"scaled_dot_product_attention {lib_ms:.6f} ms (max |diff| vs "
-          f"plain {lib_err:.3e}); per call on the card's timeline (CUDA "
-          f"events): kernel {call_ms:.6f} ms, plain {plain_call_ms:.6f} "
-          f"ms, library {lib_call_ms:.6f} ms; bound "
+          f"plain {lib_err:.3e}; kernels {sorted(lib)}); torch.profiler "
+          f"device time: {prof_txt}; bound "
           f"{max(flop_ms, bytes_ms):.6f} ms (operations {flop_ms:.6f}: "
-          f"{flop:.4e} FLOP at 989 TFLOP/s bf16; bytes {bytes_ms:.6f}: "
+          f"{flop:.4e} FLOP at {rate_name}; bytes {bytes_ms:.6f}: "
           f"{nbytes} B at 3.35 TB/s); kernel / library {ms / lib_ms:.3f}, "
           f"bound / kernel {max(flop_ms, bytes_ms) / ms:.4f}; kernels "
-          f"{sorted(mine)}")
-    return {"ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(flop_ms, bytes_ms),
-            "bound_by": "operations" if flop_ms >= bytes_ms else "bytes",
-            "library_ms": lib_ms}
+          f"{sorted(mine)} (checked for {symbol})")
+    rec = {"ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(flop_ms, bytes_ms),
+           "bound_by": "operations" if flop_ms >= bytes_ms else "bytes",
+           "library_ms": lib_ms}
+    if f32:
+        rec["timing_launches"] = F32_LAUNCHES.n - f32_before
+    return rec
 
 
 def _route_err(a, b, dt: str, what: str):
@@ -1356,7 +1419,7 @@ def phase_lm_prefill(dev):
     import numpy as np
     import torch
     from repro_torch.configs import registry
-    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.kernels.flash_attention import F32_LAUNCHES, LAUNCHES
     from repro_torch.models import api, common
     from repro_torch.train import step
 
@@ -1381,14 +1444,16 @@ def phase_lm_prefill(dev):
     prefill = step.make_prefill_step(cfg)
 
     LAUNCHES.reset()
+    f32_before = F32_LAUNCHES.n
     t0 = time.perf_counter()
     last = prefill(params, batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = LAUNCHES.n
-    if launches != cfg.n_layers:
-        fail(f"lm-prefill: K2 launched {launches} times, expected "
-             f"{cfg.n_layers} (one a layer)")
+    if launches != cfg.n_layers or F32_LAUNCHES.n != f32_before:
+        fail(f"lm-prefill: K2 launched {launches} times, "
+             f"{F32_LAUNCHES.n - f32_before} of them float32, expected "
+             f"{cfg.n_layers} (one a layer), all bf16")
     if last.shape != (PREFILL_BATCH, cfg.vocab) or \
             not bool(torch.isfinite(last.float()).all()):
         fail(f"lm-prefill: last-token logits {tuple(last.shape)} not "
@@ -1760,7 +1825,7 @@ def phase_lm_family(dev, name: str, arch: str, k2_want: int) -> int:
     import numpy as np
     import torch
     from repro_torch.configs import registry
-    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.kernels.flash_attention import F32_LAUNCHES, LAUNCHES
     from repro_torch.models import api
     from repro_torch.train import step
 
@@ -1784,14 +1849,16 @@ def phase_lm_family(dev, name: str, arch: str, k2_want: int) -> int:
                             np.random.default_rng(0))
     prefill = step.make_prefill_step(cfg)
     LAUNCHES.reset()
+    f32_before = F32_LAUNCHES.n
     t0 = time.perf_counter()
     last = prefill(params, batch).clone()   # not the full logits' storage
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = LAUNCHES.n
-    if launches != k2_want:
+    if launches != k2_want or F32_LAUNCHES.n != f32_before:
         fail(f"{name}: K2 launched {launches} times in the prefill, "
-             f"expected {k2_want}")
+             f"{F32_LAUNCHES.n - f32_before} of them float32, expected "
+             f"{k2_want}, all bf16")
     if last.shape != (PREFILL_BATCH, cfg.vocab) or \
             not bool(torch.isfinite(last.float()).all()):
         fail(f"{name}: last-token logits {tuple(last.shape)} not finite or "
@@ -2248,7 +2315,7 @@ def lm_sharded_rank(root: str) -> dict:
     import torch
     import torch.distributed as dist
     from repro_torch.configs import registry
-    from repro_torch.kernels.flash_attention import LAUNCHES
+    from repro_torch.kernels.flash_attention import F32_LAUNCHES, LAUNCHES
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import api
@@ -2301,8 +2368,9 @@ def lm_sharded_rank(root: str) -> dict:
                             np.random.default_rng(0))
     prefill = step.make_prefill_step(cfg, mesh=mesh)
     LAUNCHES.reset()
+    F32_LAUNCHES.reset()
     last, out["prefill_first_ms"] = clock(lambda: prefill(params, batch))
-    out["k2"] = LAUNCHES.n
+    out["k2"], out["k2_f32"] = LAUNCHES.n, F32_LAUNCHES.n
     _, out["prefill_ms"] = clock(lambda: prefill(params, batch))
     with CheckedK2() as chk:            # K2 at this rank's local shapes
         prefill(params, batch)
@@ -2480,9 +2548,10 @@ def phase_lm_sharded(dry: dict) -> list:
         if o["backend"] != "gloo" or o["device"] != 0:
             fail(f"lm-sharded: rank {o['rank']} ran {o['backend']} on "
                  f"cuda:{o['device']}")
-        if o["k2"] != 22:
+        if o["k2"] != 22 or o["k2_f32"]:
             fail(f"lm-sharded: rank {o['rank']} launched K2 {o['k2']} "
-                 f"times in the prefill, expected 22 (one a layer)")
+                 f"times in the prefill, {o['k2_f32']} of them float32, "
+                 f"expected 22 (one a layer), all bf16")
         if o["k2_checked"] != 22 or not o["k2_err"] < K2_TOL["bfloat16"]:
             fail(f"lm-sharded: rank {o['rank']}'s K2 against attention_ref "
                  f"on the sharded prefill's own inputs: {o['k2_checked']} "
@@ -2936,6 +3005,15 @@ def run_phases(dev, card: str, wedge_cpu, dryrun) -> None:
           f"prefills)")
     rec_k2["launches"] += sum(sharded_k2) + family_launches
     rec_k2["sharded_launches_per_rank"] = sharded_k2
+    # the float32 kernel: none on the main path (every prefill above
+    # fails on one); the rest of this process's launches are checks
+    from repro_torch.kernels.flash_attention import F32_LAUNCHES
+    rec_k2["float32_launches"] = 0
+    rec_k2["float32_check_launches"] = (F32_LAUNCHES.n
+                                        - rec_k2["float32_timing_launches"])
+    print(f"launches: flash_attention_f32 0 on the main path, "
+          f"{rec_k2['float32_check_launches']} in the checks, "
+          f"{rec_k2['float32_timing_launches']} in its timing")
 
     print(card)
     print(json.dumps({"kernels": [rec_k1, rec_p2, rec_k2]}))

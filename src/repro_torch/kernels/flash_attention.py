@@ -36,6 +36,8 @@ from .build import LaunchCount, build
 
 #: launches of the flash-attention kernels in this process
 LAUNCHES = LaunchCount()
+#: the part of :data:`LAUNCHES` that went to the float32 kernel
+F32_LAUNCHES = LaunchCount()
 
 #: head dims the kernels are built for; another head dim up to the
 #: largest runs at the next one up, its q, k and v padded with zero
@@ -187,4 +189,6 @@ def _launch(q, k, v, causal: bool, dh: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     LAUNCHES.n += 1
+    if q.dtype == torch.float32:
+        F32_LAUNCHES.n += 1
     return o

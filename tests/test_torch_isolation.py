@@ -59,7 +59,8 @@ def test_port_imports_no_jax_and_no_repro():
         "repro_torch.launch.train, repro_torch.models.costs, "
         "repro_torch.core.sharded, repro_torch.dist, "
         "repro_torch.parallel.sharding, repro_torch.launch.mesh, "
-        "repro_torch.configs.shapes, repro_torch.launch.dryrun\n"
+        "repro_torch.configs.shapes, repro_torch.launch.dryrun, "
+        "repro_torch.bench, repro_torch.bench.collect\n"
         "from repro_torch.configs import registry\n"
         "[registry.get(a) for a in registry.ARCH_IDS]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -105,6 +106,25 @@ def test_core_package_import_stays_light():
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["False", "False", "repro_torch.core.sim",
                                   "True"], out.stdout
+
+
+def test_bench_package_import_stays_light():
+    """``repro_torch.bench`` imports the standard library only, as
+    ``repro.bench`` promises: no torch, no numpy; ``collect`` pulls in the
+    simulator."""
+    code = (
+        "import sys; sys.path.insert(0, %r)\n"
+        "import repro_torch.bench as b\n"
+        "print('torch' in sys.modules, 'numpy' in sys.modules, end=' ')\n"
+        "b.compare_reports(b.BenchReport('a', metrics=[b.Metric('x', 1)]), "
+        "b.BenchReport('a', metrics=[b.Metric('x', 1)]))\n"
+        "print('torch' in sys.modules, end=' ')\n"
+        "import repro_torch.bench.collect\n"
+        "print('torch' in sys.modules)\n" % SRC)
+    out = _py("-c", code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False", "False", "True"], \
+        out.stdout
 
 
 def test_no_source_mentions_a_jax_or_repro_import():
