@@ -15,34 +15,37 @@ caught:
    version, bit-exact on seeded cases (n = 1..400, 127/128/129 and the
    208x208 mesh's 43,264 routers: every case launched on the card, one
    synchronise, the plain version run on CPU copies); both timed at
-   43,264 (device time from ``torch.profiler``, and per call with CUDA
-   events);
+   43,264 (the kernel in CUDA events with the card held busy while the
+   host issues the calls, ``torch.profiler``'s device time and un-held
+   events beside; the plain version, which stalls the host under a
+   hold, in the profiler's device time);
 3b. kernel-phase2 — K1's redesign, the fused Phase-2 router kernel, which
    the simulator runs once a cycle: bit-exact against its plain version
    (run on CPU copies) on seeded cases (n = 1 to 43,264, the 128-router
    tile's edges, pending depth 1, 2 and 4, views off a 16-byte boundary)
    and on mid-run states of the wedge and of paper-208 taken after Phases
-   1a and 1b of a cycle; timed at 43,264 routers beside its byte bound
-   and the eager Phase 2 (the plain version on CUDA tensors: device time
-   and launches);
-4. kernel-K2 — K2 (flash attention: bf16 on the tensor cores, float32
-   on the CUDA cores) against ``attention_ref`` at the four
+   1a and 1b of a cycle; timed at 43,264 routers (held CUDA events, the
+   profiler's device time beside) against its byte bound and the eager
+   Phase 2 (the plain version on CUDA tensors: the profiler's device
+   time and launches);
+4. kernel-K2 — K2 (flash attention, on the tensor cores: bf16, and
+   float32 in three TF32 passes) against ``attention_ref`` at the four
    ``tests/test_kernels.py`` shapes, grouped-query cases at D 32, 64 and
-   128, and at D 16 and 14 (padded to D 32: the reduced configs' head
-   dims) in both dtypes, S != T cases, the tinyllama-1.1b prefill shape (4, 32, 2048,
-   64) and the D-128 prefill shapes of qwen2-moe-a2.7b (4, 16/16, 2048,
-   128) and llama-3.2-vision-11b (4, 32/8, 2048, 128), bf16 causal,
-   within 1e-5 (float32) and 5e-2 (bfloat16), one launch a call; at the
-   three prefill shapes the kernel, the plain version and
+   128, S != T cases, each in both dtypes, and at D 16 and 14 (padded to
+   D 32: the reduced configs' head dims), the tinyllama-1.1b prefill
+   shape (4, 32, 2048, 64) and the D-128 prefill shapes of
+   qwen2-moe-a2.7b (4, 16/16, 2048, 128) and llama-3.2-vision-11b (4,
+   32/8, 2048, 128), causal, in both dtypes, within 1e-5 (float32) and
+   5e-2 (bfloat16), one launch a call; at the three prefill shapes, in
+   each dtype, the kernel, the plain version and
    ``scaled_dot_product_attention`` (the library yardstick, never called
-   by the port) are timed (CUDA events, the card held busy while the host
-   issues the calls; torch.profiler's device times beside them, since on
-   some machines they read about half); and the float32 kernel (off the
-   main path) at
-   the tinyllama-1.1b prefill shape, checked within 1e-5 and timed against
-   its bound at the float32 CUDA-core rate and SDPA in float32 (K and V
-   expanded to the query heads), the profile naming
-   ``flash_attention_f32_kernel``;
+   by the port; float32 with K and V expanded to the query heads) are
+   timed (CUDA events, the card held busy while the host issues the
+   calls; torch.profiler's device times beside them, since on some
+   machines they read about half) against the kernel's bound: bf16 at
+   989 TFLOP/s, float32 three TF32 passes at 495 TFLOP/s; the profile
+   names ``flash_attention_wgmma_kernel`` and (the float32 kernel, off
+   the main path) ``flash_attention_3xtf32_kernel``;
 5. wedge     — the former S14 wedge (16x16, distributed directory,
    ``app_trace_loop(cfg, "matmul", 20, 0)``) run to completion on the
    card through ``run``; its statistics must equal the port's own CPU run
@@ -233,6 +236,10 @@ SCALAR_OPS_PER_S = 67e12
 #: H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet): the least
 #: time for attention's two products in bf16
 BF16_FLOP_PER_S = 989e12
+#: H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet): K2's float32
+#: kernel takes each product in three TF32 passes (3xTF32)
+TF32_FLOP_PER_S = 495e12
+TF32_PASSES = 3
 #: bytes the arbitration moves per router: age, dc, dr as int32 and
 #: valid, we as bytes for 5 candidates plus 4 port bytes in; assigned as
 #: int32 and deflect as bytes for 5 candidates out
@@ -278,8 +285,9 @@ TIMED_CYCLES = 256
 
 #: K2's shapes: (B, H, KV, S, D, dtype, causal), with T = S, or T
 #: appended; the first four are tests/test_kernels.py's, then
-#: grouped-query cases (at yi-6b's heads for D 128), then S != T, then
-#: the tinyllama-1.1b prefill (B 4, S 2048) that the main path gives it
+#: grouped-query cases (at yi-6b's heads for D 128), then S != T, each
+#: in both dtypes, then the tinyllama-1.1b prefill (B 4, S 2048) that the
+#: main path gives it
 K2_SHAPES = [(1, 2, 2, 256, 64, "float32", True),
              (2, 1, 1, 128, 128, "bfloat16", True),
              (1, 4, 4, 384, 64, "float32", False),
@@ -287,9 +295,13 @@ K2_SHAPES = [(1, 2, 2, 256, 64, "float32", True),
              (2, 8, 2, 256, 64, "float32", True),
              (2, 8, 2, 256, 64, "bfloat16", True),
              (1, 32, 4, 1024, 128, "bfloat16", True),
+             (1, 32, 4, 1024, 128, "float32", True),
              (2, 4, 1, 512, 32, "bfloat16", True),
+             (2, 4, 1, 512, 32, "float32", True),
              (2, 4, 2, 128, 64, "bfloat16", False, 384),
+             (2, 4, 2, 128, 64, "float32", False, 384),
              (1, 4, 1, 128, 128, "bfloat16", False, 384),
+             (1, 4, 1, 128, 128, "float32", False, 384),
              # head dims no kernel is built for, run padded to D 32: the
              # reduced configs' D 16 and D 14
              (2, 4, 2, 256, 16, "bfloat16", True),
@@ -302,20 +314,26 @@ PREFILL_SHAPE = (4, 32, 4, 2048, 64, "bfloat16", True)
 #: heads, 8 KV heads); timed against the kernel's bound and SDPA
 D128_SHAPES = ((4, 16, 16, 2048, 128, "bfloat16", True),
                (4, 32, 8, 2048, 128, "bfloat16", True))
-#: K2's float32 kernel at the tinyllama-1.1b prefill shape: off the main
-#: path (the compute dtype is bf16), checked and timed against its bound
-#: at the float32 CUDA-core rate and against SDPA in float32
+#: K2's float32 kernel at the tinyllama-1.1b prefill shape and at the two
+#: D-128 prefill shapes: off the main path (the compute dtype is bf16),
+#: checked and timed against its bound (three TF32 passes) and against
+#: SDPA in float32
 F32_PREFILL_SHAPE = (4, 32, 4, 2048, 64, "float32", True)
+F32_D128_SHAPES = tuple(s[:5] + ("float32", True) for s in D128_SHAPES)
 #: test_kernels.py's tolerances of the flash kernel against attention_ref
 K2_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 #: cycles the card spins before a held timing (``event_ms(hold=True)``):
 #: ~50 ms at the H100's 1,980 MHz, far longer than the host takes to
-#: issue 20 K2 calls
+#: issue 20 K2 calls or 200 K1 calls (0.026-0.13 ms a call)
 HOLD_CYCLES = 10 ** 8
-#: the kernels' symbols, as the profiler names them: bf16 on the tensor
-#: cores, float32 on the CUDA cores
+#: the hold's length in seconds at the H100's highest SM clock, 1,980
+#: MHz (the shortest it lasts): a held timing whose calls took the host
+#: longer to issue says so
+HOLD_S = HOLD_CYCLES / 1.98e9
+#: the kernels' symbols, as the profiler names them (float32 also runs
+#: flash_attention_split_kv_kernel before it)
 K2_BF16_SYMBOL = "flash_attention_wgmma_kernel"
-K2_F32_SYMBOL = "flash_attention_f32_kernel"
+K2_F32_SYMBOL = "flash_attention_3xtf32_kernel"
 
 LM_ARCH = "tinyllama-1.1b"
 PREFILL_BATCH, PREFILL_SEQ = 4, 2048
@@ -478,11 +496,17 @@ def event_ms(fn, iters: int, hold: bool = False) -> float:
     end = torch.cuda.Event(enable_timing=True)
     if hold:
         torch.cuda._sleep(HOLD_CYCLES)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    issue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    if hold and issue_s > HOLD_S:
+        print(f"event_ms: the host took {issue_s * 1e3:.1f} ms to issue "
+              f"{iters} calls, longer than the hold: the time includes "
+              f"the host's issue")
     return start.elapsed_time(end) / iters
 
 
@@ -550,26 +574,34 @@ def phase_kernel(dev):
 
     n = 43_264
     args = case(12345, n)
-    call_ms = event_ms(lambda: router_arbitrate_cuda(*args), 500)
-    plain_call_ms = event_ms(lambda: arbitrate_ref(*args), 50)
+    kernel = lambda: router_arbitrate_cuda(*args)  # noqa: E731
+    plain = lambda: arbitrate_ref(*args)           # noqa: E731
+    # the kernel: CUDA events with the card held while the host issues the
+    # calls (0.026-0.038 ms a call, far longer than the kernel runs), the
+    # card's own time; un-held events and torch.profiler's device time
+    # beside.  The plain version: the profiler's device time (its calls
+    # stall the host while the card is held, so a hold cannot cover
+    # them), or its un-held events where the profiler records none
+    ms = event_ms(kernel, 200, hold=True)
+    call_ms = event_ms(kernel, 500)
+    plain_call_ms = event_ms(plain, 50)
     iters = 200
-    _, kern = device_profile(lambda: router_arbitrate_cuda(*args), iters)
-    _, plain = device_profile(lambda: arbitrate_ref(*args), iters)
+    _, kern = device_profile(kernel, iters)
+    _, pl = device_profile(plain, iters)
     mine = {k: v for k, v in kern.items() if "router_arbitrate" in k}
-    if mine and plain:
-        ms = sum(v[0] for v in mine.values()) / iters
-        plain_ms = sum(v[0] for v in plain.values()) / iters
-    else:
-        print("kernel: torch.profiler recorded no device time; reporting "
-              "the CUDA-event times")
-        ms, plain_ms = call_ms, plain_call_ms
+    prof_ms = sum(v[0] for v in mine.values()) / iters
+    plain_ms = (sum(v[0] for v in pl.values()) / iters if pl
+                else plain_call_ms)
     bytes_ms = n * ARB_BYTES_PER_ROUTER / HBM_BYTES_PER_S * 1e3
     ops_ms = n * ARB_OPS_PER_ROUTER / SCALAR_OPS_PER_S * 1e3
-    print(f"kernel: n={n} device time (torch.profiler): kernel {ms:.6f} ms, "
-          f"plain {plain_ms:.6f} ms ({len(plain)} kernels); per call on "
-          f"the card's timeline (CUDA events): kernel {call_ms:.6f} ms, "
-          f"plain {plain_call_ms:.6f} ms; bound {max(bytes_ms, ops_ms):.6f} "
-          f"ms (bytes {bytes_ms:.6f}, ops {ops_ms:.6f})")
+    print(f"kernel: n={n} per call on the card: kernel {ms:.6f} ms (CUDA "
+          f"events, the card held while the host issues; torch.profiler "
+          f"{prof_ms:.6f} ms, un-held events {call_ms:.6f} ms), plain "
+          f"{plain_ms:.6f} ms ({'torch.profiler, ' if pl else ''}"
+          f"{len(pl)} kernels; un-held events {plain_call_ms:.6f} ms); "
+          f"bound {max(bytes_ms, ops_ms):.6f} ms (bytes {bytes_ms:.6f}, "
+          f"ops {ops_ms:.6f}); bound / kernel "
+          f"{max(bytes_ms, ops_ms) / ms:.4f}")
     return {
         "name": "router_arbitrate",
         "route": "cuda",
@@ -698,6 +730,10 @@ def phase_kernel_phase2(dev):
     vals = [args[k] for k in P2_ARGS]
     kernel = lambda: phase2_router_cuda(*vals, cols=cfg_t.cols)  # noqa: E731
     plain = lambda: phase2_router_ref(*vals, cols=cfg_t.cols)    # noqa: E731
+    # as in phase_kernel: the kernel in held CUDA events (the host issues
+    # a call in 0.037-0.15 ms), the eager Phase 2 in the profiler's device
+    # time (or its un-held events)
+    ms = event_ms(kernel, 200, hold=True)
     call_ms = event_ms(kernel, 500)
     plain_call_ms = event_ms(plain, 50)
     iters = 200
@@ -705,25 +741,24 @@ def phase_kernel_phase2(dev):
     _, pl = device_profile(plain, 20)
     mine = {k: v for k, v in kern.items() if P2_SYMBOL in k}
     plain_launches = sum(v[1] for v in pl.values()) / 20
-    if mine and pl:
-        ms = sum(v[0] for v in mine.values()) / iters
-        plain_ms = sum(v[0] for v in pl.values()) / 20
-    else:
-        print("kernel-phase2: torch.profiler recorded no device time; "
-              "reporting the CUDA-event times")
-        ms, plain_ms = call_ms, plain_call_ms
+    plain_ms = (sum(v[0] for v in pl.values()) / 20 if pl
+                else plain_call_ms)
+    prof_txt = (f"kernel {sum(v[0] for v in mine.values()) / iters:.6f} "
+                f"ms" if mine else "no device time recorded")
     n = cfg_t.num_nodes
     nbytes = p2_bytes(args)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n * P2_OPS_PER_ROUTER / SCALAR_OPS_PER_S * 1e3
-    print(f"kernel-phase2: n={n} (paper-208 after 16 cycles) device time "
-          f"(torch.profiler): kernel {ms:.6f} ms, eager Phase 2 (plain "
-          f"version on the card) {plain_ms:.6f} ms in {plain_launches:.1f} "
-          f"launches a call; per call on the card's timeline (CUDA "
-          f"events): kernel {call_ms:.6f} ms, eager {plain_call_ms:.6f} "
-          f"ms; bound {max(bytes_ms, ops_ms):.6f} ms (bytes {bytes_ms:.6f}: "
-          f"{nbytes} B, {nbytes / n:.1f} B a router, at 3.35 TB/s; ops "
-          f"{ops_ms:.6f}); bound / kernel "
+    print(f"kernel-phase2: n={n} (paper-208 after 16 cycles) per call on "
+          f"the card: kernel {ms:.6f} ms (CUDA events, the card held while "
+          f"the host issues), eager Phase 2 (plain version on the card) "
+          f"{plain_ms:.6f} ms ({'torch.profiler, ' if pl else ''}"
+          f"{plain_launches:.1f} launches a call); un-held events (the "
+          f"host's issue): kernel {call_ms:.6f} ms, eager "
+          f"{plain_call_ms:.6f} ms; torch.profiler device time: "
+          f"{prof_txt}; bound {max(bytes_ms, ops_ms):.6f} ms (bytes "
+          f"{bytes_ms:.6f}: {nbytes} B, {nbytes / n:.1f} B a router, at "
+          f"3.35 TB/s; ops {ops_ms:.6f}); bound / kernel "
           f"{max(bytes_ms, ops_ms) / ms:.4f}; kernels {sorted(mine)}")
     return {
         "name": "phase2_router",
@@ -1225,7 +1260,8 @@ def k2_case(shape, dev, seed: int = 0):
     t = t[0] if t else s
     dtype = getattr(torch, dt)
     shapes = ((b, h, s, d), (b, kv, t, d), (b, kv, t, d))
-    if shape in (PREFILL_SHAPE, F32_PREFILL_SHAPE) or shape in D128_SHAPES:
+    if shape in (PREFILL_SHAPE, F32_PREFILL_SHAPE, *D128_SHAPES,
+                 *F32_D128_SHAPES):
         gen = torch.Generator(device=dev).manual_seed(seed)
         return [torch.randn(sh, generator=gen, device=dev).to(dtype)
                 for sh in shapes]
@@ -1245,7 +1281,7 @@ def phase_kernel_k2(dev):
     # synchronise
     runs = []
     for shape in K2_SHAPES + [PREFILL_SHAPE, F32_PREFILL_SHAPE,
-                              *D128_SHAPES]:
+                              *D128_SHAPES, *F32_D128_SHAPES]:
         causal = shape[6]
         q, k, v = k2_case(shape, dev)
         before = LAUNCHES.n
@@ -1281,6 +1317,11 @@ def phase_kernel_k2(dev):
         k2_timed(shape, dev, what)
     f32 = k2_timed(F32_PREFILL_SHAPE, dev, "tinyllama-1.1b prefill shape, "
                    "float32 (off the main path)")
+    for shape, what in zip(F32_D128_SHAPES, ("qwen2-moe-a2.7b", "llama-3.2-"
+                                             "vision-11b")):
+        f32["timing_launches"] += k2_timed(
+            shape, dev, f"{what} prefill shape, float32 (off the main "
+                        f"path)")["timing_launches"]
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -1348,14 +1389,20 @@ def k2_timed(shape, dev, what: str) -> dict:
     else:
         prof_txt = "no device time recorded"
     # causal S == T: query s sees s + 1 keys; two products of 2*D FLOP a
-    # (query, key) pair, at the tensor cores' bf16 rate or the CUDA
-    # cores' float32 rate; each input read once, the output written once
+    # (query, key) pair, at the tensor cores' bf16 rate, or in float32 three
+    # passes of them at the TF32 rate (the CUDA cores' float32 rate
+    # printed beside); each input read once, the output written once
     pairs = s * (s + 1) // 2 if causal else s * s
     flop = 4 * d * pairs * b * h
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    rate, rate_name = ((SCALAR_OPS_PER_S, "67 TFLOP/s float32") if f32
-                       else (BF16_FLOP_PER_S, "989 TFLOP/s bf16"))
-    flop_ms = flop / rate * 1e3
+    if f32:
+        flop_ms = TF32_PASSES * flop / TF32_FLOP_PER_S * 1e3
+        rate_name = (f"{TF32_PASSES} passes at 495 TFLOP/s TF32; at 67 "
+                     f"TFLOP/s on the CUDA cores "
+                     f"{flop / SCALAR_OPS_PER_S * 1e3:.6f} ms")
+    else:
+        flop_ms = flop / BF16_FLOP_PER_S * 1e3
+        rate_name = "989 TFLOP/s bf16"
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"kernel-K2: {what} (B, H, KV, S, D) = {(b, h, kv, s, d)} {dt} "
           f"per call on the card (CUDA events, the card held while the "

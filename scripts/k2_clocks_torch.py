@@ -5,8 +5,10 @@ show which clock a kernel time can rest on.
     python3 scripts/k2_clocks_torch.py     # from the repo root, on a GPU
 
 At the tinyllama-1.1b prefill shape (4, 32 heads / 4 KV heads, 2048,
-64), causal: the float32 kernel, ``scaled_dot_product_attention`` in
-float32 (K and V expanded to the query heads) and the bf16 kernel, each
+64), causal: the float32 kernel (three TF32 passes on the tensor cores,
+after the pre-pass that splits K and V; the profiler's time sums both),
+``scaled_dot_product_attention`` in float32 (K and V expanded to the
+query heads) and the bf16 kernel (``wgmma`` + TMA), each
 timed with CUDA events over back-to-back calls, with CUDA events while
 the card is held busy as the host issues the calls, with
 ``torch.profiler``'s device time, and with the host's clock around calls

@@ -12,14 +12,19 @@ by dtype:
   float32 accumulators, P rounded to bf16 in registers, the online
   softmax in float32 between them, overlapped with the previous tile's
   P.V;
-* float32 goes to ``flash_attention_f32_kernel``, on the CUDA cores:
-  ``wgmma`` would take float32 as TF32, which keeps about three decimal
-  digits and misses the 1e-5 tolerance.
+* float32 goes to ``flash_attention_3xtf32_kernel``, on the tensor cores
+  too: ``wgmma`` reads float32 as TF32 (about three decimal digits), so
+  each operand is split into hi = tf32(x) and lo = tf32(x - hi) and each
+  product is taken in three passes, lo.hi + hi.lo + hi.hi, which holds
+  the 1e-5 tolerance.  ``flash_attention_split_kv_kernel`` first writes K
+  hi and lo and V^T hi and lo into scratch that :func:`_launch` allocates
+  (four times k's bytes); Q is split in shared memory and P in registers.
 
 What bounds both is operations: 6.875e10 FLOP at the tinyllama-1.1b
 prefill shape (4, 32 heads, 4 KV heads, 2048, 64), 0.0695 ms at the
-H100's 989 TFLOP/s of bf16 tensor-core work.  Their plain PyTorch
-version is :func:`repro_torch.kernels.ref.attention_ref`.
+H100's 989 TFLOP/s of bf16 tensor-core work; float32's three passes,
+0.4167 ms at 495 TFLOP/s of TF32.  Their plain PyTorch version is
+:func:`repro_torch.kernels.ref.attention_ref`.
 
 The library is built with ``nvcc`` at the first call
 (:mod:`repro_torch.kernels.build`), never at import, so this module
@@ -57,7 +62,7 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         # pointers and the stream as c_void_p: a bare int would be passed
         # as a 32-bit int and cut the pointer
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -167,8 +172,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.data_ptr() % 16:
-            # float32 rows are read in 16-byte granules; TMA needs a
-            # 16-byte aligned base for bf16
+            # TMA needs a 16-byte aligned base; the float32 pre-pass
+            # reads k and v in 16-byte granules
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if q.device.index != torch.cuda.current_device():
         # the C entry point launches on the thread's current device
@@ -179,11 +184,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(q, k, v, causal: bool, dh: int) -> torch.Tensor:
     """One launch at q's head dim (an instance's), the logits scaled by
-    ``1 / sqrt(dh)``."""
+    ``1 / sqrt(dh)``.  float32 also takes scratch for the split K and V
+    (K hi, K lo, V^T hi, V^T lo: four times k's size)."""
     b, h, s, d = q.shape
     o = torch.empty_like(q)
+    scratch = (torch.empty((4, *k.shape), dtype=torch.float32,
+                           device=q.device)
+               if q.dtype == torch.float32 else None)
     err = _lib().flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, h,
         k.shape[1], s, k.shape[2], d, dh, _DTYPES[q.dtype], int(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

@@ -171,9 +171,13 @@ def test_sweep_knob_views_on_the_card_equal_solo_runs(cuda):
     (2, 8, 2, 256, 64, torch.float32, True, None),   # GQA: 4 per KV head
     (2, 8, 2, 256, 64, torch.bfloat16, True, None),  # GQA, the main path's D
     (1, 32, 4, 1024, 128, torch.bfloat16, True, None),   # yi-6b's heads
+    (1, 32, 4, 1024, 128, torch.float32, True, None),
     (2, 4, 1, 512, 32, torch.bfloat16, True, None),  # GQA at D 32
+    (2, 4, 1, 512, 32, torch.float32, True, None),
     (2, 4, 2, 128, 64, torch.bfloat16, False, 384),  # S != T
+    (2, 4, 2, 128, 64, torch.float32, False, 384),
     (1, 4, 1, 128, 128, torch.bfloat16, False, 384),
+    (1, 4, 1, 128, 128, torch.float32, False, 384),
     # head dims with no instance, padded to the next: the reduced configs'
     (2, 4, 2, 256, 16, torch.bfloat16, True, None),
     (2, 4, 2, 256, 16, torch.float32, True, None),
@@ -185,9 +189,9 @@ def test_sweep_knob_views_on_the_card_equal_solo_runs(cuda):
 def test_flash_attention_kernel_matches_plain_version(cuda, b, h, kv, s, d,
                                                       dtype, causal, t):
     """K2 against attention_ref at test_kernels.py's shapes and
-    tolerances (1e-5 float32, 5e-2 bfloat16), more bf16 shapes for
-    the tensor-core kernel, and head dims run padded (``t`` None: T =
-    S)."""
+    tolerances (1e-5 float32, 5e-2 bfloat16), grouped-query and S != T
+    shapes at D 32, 64 and 128 in both dtypes, and head dims run padded
+    (``t`` None: T = S)."""
     t = s if t is None else t
     rng = np.random.default_rng(0)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape)).to(cuda, dtype)
