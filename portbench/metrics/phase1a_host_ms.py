@@ -1,0 +1,6 @@
+"""Host milliseconds per scenario-cycle in the port's ``phase1a``: the
+benchmark's spans around each call, over the traced sub-window."""
+
+
+def read(t):
+    return t.spans["phase1a"] / t.scenario_cycles * 1e3
