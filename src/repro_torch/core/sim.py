@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tracing import RECORDER
 from .cache import phase1a, phase1b
 from .config import ST_DONE, ST_WAIT_DATA, ST_WAIT_DIR, SimConfig
 from .noc import phase2, phase3
@@ -119,16 +120,27 @@ def cycle_step(s: SimState, cfg: SimConfig, geo: Geometry,
     The phases compute in int32: under a packed storage layout the state
     is widened on entry and narrowed back on exit.  The cycle boundary
     also folds the low stats word into ``stats_hi``.  ``geo`` holds
-    tensors on the state's device (:func:`state.geometry_to`)."""
-    dtypes = leaf_dtypes(cfg, s.trace.shape[-1])
-    s = widen_state(s)
-    s = phase1a(s, cfg, ctx)
-    s = phase1b(s, cfg, ctx)
-    s, arb = phase2(s, cfg, ctx)
-    s = phase3(s, cfg, geo, ctx, arb)
-    hi, lo = fold_stats(s.stats_hi, s.stats)
-    return narrow_state(
-        s._replace(cycle=s.cycle + 1, stats=lo, stats_hi=hi), dtypes)
+    tensors on the state's device (:func:`state.geometry_to`).
+
+    With :data:`repro_torch.tracing.RECORDER` on, the cycle is a
+    ``cycle`` span holding ``cast`` (entry; exit), ``phase1a``,
+    ``phase1b``, ``phase2``, ``phase3`` and ``cast`` spans."""
+    with RECORDER.span("cycle"):
+        dtypes = leaf_dtypes(cfg, s.trace.shape[-1])
+        with RECORDER.span("cast"):
+            s = widen_state(s)
+        with RECORDER.span("phase1a"):
+            s = phase1a(s, cfg, ctx)
+        with RECORDER.span("phase1b"):
+            s = phase1b(s, cfg, ctx)
+        with RECORDER.span("phase2"):
+            s, arb = phase2(s, cfg, ctx)
+        with RECORDER.span("phase3"):
+            s = phase3(s, cfg, geo, ctx, arb)
+        with RECORDER.span("cast"):
+            hi, lo = fold_stats(s.stats_hi, s.stats)
+            return narrow_state(
+                s._replace(cycle=s.cycle + 1, stats=lo, stats_hi=hi), dtypes)
 
 
 def finished(s: SimState) -> torch.Tensor:
@@ -223,7 +235,13 @@ def _drive(s: SimState, cfg: SimConfig, max_cycles: int,
 
     ``s`` is solo or batched.  Each scenario steps as its own solo state
     (the batch is a Python loop over scenarios), and the monitors and the
-    termination predicate run on a (B, ...) view of the scenarios."""
+    termination predicate run on a (B, ...) view of the scenarios.
+
+    With :data:`repro_torch.tracing.RECORDER` on, each cycle is a
+    ``step`` span holding the scenarios' ``cycle`` spans and a
+    ``monitor`` span; each termination check is a ``check`` span; and
+    ``host_syncs`` counts the reads of a device value to the host (the
+    start clock, each check)."""
     solo = s.cycle.dim() == 0
     dev = s.cycle.device
     states = [s] if solo else [_index(s, b) for b in range(s.cycle.shape[0])]
@@ -237,23 +255,36 @@ def _drive(s: SimState, cfg: SimConfig, max_cycles: int,
     done = torch.full((len(states),), -1, dtype=I32, device=dev)
     mon = _mon_init(batch([x.stats for x in states]),
                     batch([x.tr_ptr for x in states]))
+    RECORDER.count("host_syncs")
     clock = int(states[0].cycle)           # one clock for every scenario
     steps = 0
 
+    def stepped(b: int, x: SimState) -> SimState:
+        RECORDER.at(b, clock)
+        return cycle_step(x, cfg, geo, ctx)
+
     def step():
         nonlocal states, done, mon, clock, steps
-        states = [cycle_step(x, cfg, geo, ctx) for x in states]
-        clock += 1
-        steps += 1
-        view = SimState(*(batch(xs) if k in _MON_LEAVES else None
-                          for k, xs in zip(SimState._fields, zip(*states))))
-        fin = batch([finished(x) for x in states])
-        done = torch.where((done < 0) & fin, view.cycle, done)
-        active = (done < 0) & (mon.aux.abort == 0)
-        mon = _mon_update(mon, view, active, cfg, clock, steps)
+        RECORDER.at(None, clock)
+        with RECORDER.span("step"):
+            states = [stepped(b, x) for b, x in enumerate(states)]
+            RECORDER.at(None, clock)
+            clock += 1
+            steps += 1
+            with RECORDER.span("monitor"):
+                view = SimState(*(batch(xs) if k in _MON_LEAVES else None
+                                  for k, xs in zip(SimState._fields,
+                                                   zip(*states))))
+                fin = batch([finished(x) for x in states])
+                done = torch.where((done < 0) & fin, view.cycle, done)
+                active = (done < 0) & (mon.aux.abort == 0)
+                mon = _mon_update(mon, view, active, cfg, clock, steps)
 
     def alive() -> bool:
-        return bool(((done < 0) & (mon.aux.abort == 0)).any())
+        RECORDER.count("host_syncs")
+        RECORDER.at(None, clock)
+        with RECORDER.span("check"):
+            return bool(((done < 0) & (mon.aux.abort == 0)).any())
 
     if chunk > 1:
         # main loop: whole chunks with no per-cycle host sync; the check

@@ -6,6 +6,10 @@ with ``ctypes``.  The library lands in ``build/kernels/`` at the root of
 the checkout (git-ignored), under a name keyed on a hash of the source
 and the flags, so a changed source is rebuilt and an unchanged one is
 built once per checkout.  Nothing here runs at import time.
+
+The kernels' launch counters are :class:`repro_torch.tracing.LaunchCount`
+objects, re-exported here for the kernels' wrappers; the counters and
+spans of the simulator's driver live in :mod:`repro_torch.tracing` too.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Dict, NamedTuple
+
+from ..tracing import LaunchCount  # noqa: F401  (the kernels' counters)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -33,17 +39,6 @@ class Built(NamedTuple):
 
 
 _LOADED: Dict[str, Built] = {}
-
-
-class LaunchCount:
-    """A plain launch counter; :meth:`reset` before a run, read ``n`` after.
-    Each kernel's wrapper adds one where it launches its kernel."""
-
-    def __init__(self):
-        self.n = 0
-
-    def reset(self) -> None:
-        self.n = 0
 
 
 def find_nvcc() -> str:
