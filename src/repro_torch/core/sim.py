@@ -13,6 +13,11 @@ inside a Python loop.  The counterpart of the JAX package's
   a finished scenario keeps stepping (a no-op on every leaf but the
   clock), and the driver records each scenario's finish cycle and
   rewrites ``cycle`` at the end.
+* Each scenario's state is stepped in place: a cycle's result is
+  narrowed straight into the scenario's own tensors.  On a CUDA device
+  each scenario's cycle is captured once as a CUDA graph
+  (:class:`CycleGraph`) and replayed, one launch a scenario-cycle in
+  place of ~1,500 eager ones; elsewhere it runs eagerly.
 * Termination is checked once per K-cycle chunk (one host sync a chunk);
   the tail then steps cycle by cycle up to ``max_cycles``.  Neither a
   phase nor the monitors sync with the host on every cycle.
@@ -29,12 +34,14 @@ with no GPU they raise and never fall back to the CPU.
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import (Callable, Dict, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import router_phase
 from ..tracing import RECORDER
 from .cache import phase1a, phase1b
 from .config import ST_DONE, ST_WAIT_DATA, ST_WAIT_DIR, SimConfig
@@ -44,8 +51,8 @@ from .state import (F_DST, F_VALID, I32, P_VALID, R_NFL, STAT_NAMES,
                     init_state, leaf_dtypes, make_geometry, make_node_ctx,
                     narrow_state, stats_totals, widen_state)
 
-__all__ = ["cycle_step", "finished", "run", "stats_list", "stats_dicts",
-           "diag_counts", "DIAG_FIELDS", "ExecAux",
+__all__ = ["cycle_step", "CycleGraph", "finished", "run", "stats_list",
+           "stats_dicts", "diag_counts", "DIAG_FIELDS", "ExecAux",
            "VectorSim", "ABORT_LABELS", "check_cycle_cap", "aggregate_stats",
            "network_health", "resolve_device"]
 
@@ -114,7 +121,8 @@ class _Mon(NamedTuple):
 
 
 def cycle_step(s: SimState, cfg: SimConfig, geo: Geometry,
-               ctx: NodeCtx) -> SimState:
+               ctx: NodeCtx, graph: Optional[CycleGraph] = None
+               ) -> SimState:
     """One simulated cycle of one scenario = phases 1a, 1b, 2, 3 (S1).
 
     The phases compute in int32: under a packed storage layout the state
@@ -122,25 +130,93 @@ def cycle_step(s: SimState, cfg: SimConfig, geo: Geometry,
     also folds the low stats word into ``stats_hi``.  ``geo`` holds
     tensors on the state's device (:func:`state.geometry_to`).
 
+    Without ``graph`` the step is pure: it returns a new state.  With
+    ``graph``, the scenario's :class:`CycleGraph` on a CUDA device, the
+    cycle is stepped in place, each leaf narrowed straight into ``s``'s
+    own tensor, and ``s`` is returned: the graph's first step runs the
+    cycle eagerly and captures it, every later step replays the capture.
+
     With :data:`repro_torch.tracing.RECORDER` on, the cycle is a
     ``cycle`` span holding ``cast`` (entry; exit), ``phase1a``,
-    ``phase1b``, ``phase2``, ``phase3`` and ``cast`` spans."""
+    ``phase1b``, ``phase2``, ``phase3`` and ``cast`` spans where it runs
+    eagerly or is captured, and a ``replay`` span where it is replayed."""
     with RECORDER.span("cycle"):
-        dtypes = leaf_dtypes(cfg, s.trace.shape[-1])
-        with RECORDER.span("cast"):
-            s = widen_state(s)
-        with RECORDER.span("phase1a"):
-            s = phase1a(s, cfg, ctx)
-        with RECORDER.span("phase1b"):
-            s = phase1b(s, cfg, ctx)
-        with RECORDER.span("phase2"):
-            s, arb = phase2(s, cfg, ctx)
-        with RECORDER.span("phase3"):
-            s = phase3(s, cfg, geo, ctx, arb)
-        with RECORDER.span("cast"):
-            hi, lo = fold_stats(s.stats_hi, s.stats)
-            return narrow_state(
-                s._replace(cycle=s.cycle + 1, stats=lo, stats_hi=hi), dtypes)
+        if graph is None:
+            return _cycle(s, cfg, geo, ctx)
+        graph.step(lambda: _cycle(s, cfg, geo, ctx, into=s))
+        return s
+
+
+def _cycle(s: SimState, cfg: SimConfig, geo: Geometry, ctx: NodeCtx,
+           into: Optional[SimState] = None) -> SimState:
+    """:func:`cycle_step`'s phases; the new state is narrowed into
+    ``into``'s tensors where given (:func:`state.narrow_state`)."""
+    dtypes = leaf_dtypes(cfg, s.trace.shape[-1])
+    with RECORDER.span("cast"):
+        s = widen_state(s)
+    with RECORDER.span("phase1a"):
+        s = phase1a(s, cfg, ctx)
+    with RECORDER.span("phase1b"):
+        s = phase1b(s, cfg, ctx)
+    with RECORDER.span("phase2"):
+        s, arb = phase2(s, cfg, ctx)
+    with RECORDER.span("phase3"):
+        s = phase3(s, cfg, geo, ctx, arb)
+    with RECORDER.span("cast"):
+        hi, lo = fold_stats(s.stats_hi, s.stats)
+        return narrow_state(
+            s._replace(cycle=s.cycle + 1, stats=lo, stats_hi=hi), dtypes,
+            into)
+
+
+class CycleGraph:
+    """One scenario's cycle as a CUDA graph over the scenario's own state
+    tensors, which the graph reads and writes in place.
+
+    The first :meth:`step` runs the cycle eagerly on the capture stream
+    ``stream``, a real cycle that also makes what the cycle creates
+    lazily (the index tables, K1's scratch words for that stream, K1's
+    shared-memory opt-in) outside the graph, and then captures it; every
+    later step replays the capture.  The graphs of one drive share the
+    memory pool ``pool``: they replay one after another on one stream,
+    and once a cycle has written the state back nothing in the pool is
+    read again.  A replay adds the K1 launches the capture holds to
+    ``router_phase.LAUNCHES``."""
+
+    def __init__(self, stream: torch.cuda.Stream, pool):
+        self.stream, self.pool = stream, pool
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches = 0
+
+    def step(self, body: Callable[[], object]) -> None:
+        """Step the cycle that ``body`` computes in place: eagerly and
+        captured the first time, replayed after."""
+        if self.graph is None:
+            self._capture(body)
+            return
+        with RECORDER.span("replay"):
+            self.graph.replay()
+        RECORDER.count("graph_replays")
+        router_phase.LAUNCHES.n += self.launches
+
+    def _capture(self, body: Callable[[], object]) -> None:
+        here = torch.cuda.current_stream(self.stream.device)
+        self.stream.wait_stream(here)
+        with torch.cuda.stream(self.stream):
+            body()
+            graph = torch.cuda.CUDAGraph()
+            before = router_phase.LAUNCHES.n
+            graph.capture_begin(pool=self.pool)
+            try:
+                body()
+            finally:
+                graph.capture_end()
+        here.wait_stream(self.stream)
+        # captured, not launched: the replays count them
+        self.launches = router_phase.LAUNCHES.n - before
+        router_phase.LAUNCHES.n = before
+        self.graph = graph
+        RECORDER.count("graph_captures")
 
 
 def finished(s: SimState) -> torch.Tensor:
@@ -159,10 +235,6 @@ def finished(s: SimState) -> torch.Tensor:
 
 def _index(s: SimState, b: int) -> SimState:
     return SimState(*(x[b] for x in s))
-
-
-def _stack(states: List[SimState]) -> SimState:
-    return SimState(*(torch.stack(xs) for xs in zip(*states)))
 
 
 def _mon_init(stats: torch.Tensor, tr_ptr: torch.Tensor) -> _Mon:
@@ -233,20 +305,31 @@ def _drive(s: SimState, cfg: SimConfig, max_cycles: int,
            chunk: int) -> Tuple[SimState, ExecAux]:
     """Drive a state to completion; returns ``(state, ExecAux)``.
 
-    ``s`` is solo or batched.  Each scenario steps as its own solo state
-    (the batch is a Python loop over scenarios), and the monitors and the
-    termination predicate run on a (B, ...) view of the scenarios.
+    ``s`` is solo or batched, and is stepped in place: the returned state
+    holds ``s``'s own tensors.  Each scenario steps as its own solo state,
+    its view of ``s`` (the batch is a Python loop over scenarios), and
+    the monitors and the termination predicate run on a (B, ...) view of
+    the scenarios.  On a CUDA device each scenario's cycle is a
+    :class:`CycleGraph`, captured on its first cycle and replayed after;
+    elsewhere each cycle runs eagerly and is written back into the
+    scenario's tensors.
 
     With :data:`repro_torch.tracing.RECORDER` on, each cycle is a
     ``step`` span holding the scenarios' ``cycle`` spans and a
     ``monitor`` span; each termination check is a ``check`` span; and
     ``host_syncs`` counts the reads of a device value to the host (the
-    start clock, each check)."""
+    start clock, each check), ``graph_captures`` and ``graph_replays``
+    the CUDA graphs captured and replayed."""
     solo = s.cycle.dim() == 0
     dev = s.cycle.device
     states = [s] if solo else [_index(s, b) for b in range(s.cycle.shape[0])]
     geo = geometry_to(make_geometry(cfg.rows, cfg.cols), dev)
     ctx = make_node_ctx(cfg, dev)
+    dtypes = leaf_dtypes(cfg, s.trace.shape[-1])
+    graphs = None
+    if dev.type == "cuda":
+        stream, pool = torch.cuda.Stream(dev), torch.cuda.graph_pool_handle()
+        graphs = [CycleGraph(stream, pool) for _ in states]
 
     # the per-scenario view the monitors read: a batch of one is a view,
     # not a copy
@@ -259,15 +342,19 @@ def _drive(s: SimState, cfg: SimConfig, max_cycles: int,
     clock = int(states[0].cycle)           # one clock for every scenario
     steps = 0
 
-    def stepped(b: int, x: SimState) -> SimState:
+    def stepped(b: int, x: SimState) -> None:
         RECORDER.at(b, clock)
-        return cycle_step(x, cfg, geo, ctx)
+        if graphs is None:
+            narrow_state(cycle_step(x, cfg, geo, ctx), dtypes, into=x)
+        else:
+            cycle_step(x, cfg, geo, ctx, graphs[b])
 
     def step():
-        nonlocal states, done, mon, clock, steps
+        nonlocal done, mon, clock, steps
         RECORDER.at(None, clock)
         with RECORDER.span("step"):
-            states = [stepped(b, x) for b, x in enumerate(states)]
+            for b, x in enumerate(states):
+                stepped(b, x)
             RECORDER.at(None, clock)
             clock += 1
             steps += 1
@@ -304,9 +391,8 @@ def _drive(s: SimState, cfg: SimConfig, max_cycles: int,
                       torch.where(aux.abort > 0, aux.abort_cycle,
                                   batch([x.cycle for x in states])))
     if solo:
-        return (states[0]._replace(cycle=cyc[0]),
-                ExecAux(*(x[0] for x in aux)))
-    return _stack(states)._replace(cycle=cyc), aux
+        return s._replace(cycle=cyc[0]), ExecAux(*(x[0] for x in aux))
+    return s._replace(cycle=cyc), aux
 
 
 #: leaves the monitors read from the stacked per-scenario view

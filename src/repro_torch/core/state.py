@@ -401,7 +401,8 @@ def widen_state(s: SimState) -> SimState:
                       for k, v in zip(SimState._fields, s)))
 
 
-def narrow_state(s: SimState, dtypes: Dict[str, torch.dtype]) -> SimState:
+def narrow_state(s: SimState, dtypes: Dict[str, torch.dtype],
+                 into: Optional[SimState] = None) -> SimState:
     """Cast leaves back down to their storage dtypes (``leaf_dtypes``).
 
     All casts are value-preserving by the bounds in :func:`leaf_dtypes`,
@@ -409,15 +410,25 @@ def narrow_state(s: SimState, dtypes: Dict[str, torch.dtype]) -> SimState:
     cast wraps, congruent mod ``cfg.pkt_wrap``, so packet ids are
     unchanged) and ``l2_streak`` saturates at int16 max, which needs the
     explicit clamp because the cast alone would wrap.
+
+    With ``into`` (a state of those storage dtypes) each leaf is written
+    into ``into``'s own tensor by one ``copy_``, which casts as it
+    copies, and the state of ``into``'s tensors is returned; a leaf that
+    is ``into``'s own tensor already is left alone.  No leaf of ``s`` may
+    share memory with a different leaf of ``into``.
     """
-    def down(k, v):
+    def down(k, v, dst):
         dt = dtypes[k]
-        if v.dtype == dt:
+        if v is dst:
             return v
-        if k == "l2_streak":
+        if k == "l2_streak" and v.dtype != dt:
             v = torch.clamp(v, max=torch.iinfo(torch.int16).max)
-        return v.to(dt)
-    return SimState(*(down(k, v) for k, v in zip(SimState._fields, s)))
+        if dst is not None:
+            return dst.copy_(v)
+        return v if v.dtype == dt else v.to(dt)
+    dsts = into if into is not None else (None,) * len(s)
+    return SimState(*(down(k, v, d)
+                      for k, v, d in zip(SimState._fields, s, dsts)))
 
 
 def state_bytes(cfg: SimConfig, trace_len: int = 200,

@@ -25,9 +25,14 @@ The driver's spans (``core/sim.py``): ``step`` (one simulated cycle over
 every scenario) holds each scenario's ``cycle`` and the ``monitor``
 (termination predicate and progress monitors); ``cycle`` holds ``cast``
 (the state widened on entry; the statistics folded and the state
-narrowed on exit), ``phase1a``, ``phase1b``, ``phase2`` and ``phase3``;
-``check`` is each termination check read back to the host.  The counter
-``host_syncs`` counts the driver's reads of a device value to the host.
+narrowed on exit), ``phase1a``, ``phase1b``, ``phase2`` and ``phase3``
+where the cycle runs eagerly or is captured as a CUDA graph, and
+``replay`` where the captured graph is replayed; ``check`` is each
+termination check read back to the host.  The counter ``host_syncs``
+counts the driver's reads of a device value to the host,
+``graph_captures`` the scenarios' cycles captured as CUDA graphs (one a
+scenario a drive on a CUDA device) and ``graph_replays`` the
+scenario-cycles replayed from them.
 """
 from __future__ import annotations
 

@@ -643,3 +643,85 @@ def test_prefill_on_the_card_equals_the_cpu_run(cuda):
     assert int(gc["idx"]) == int(wc["idx"]) == 12
     for name in ("k", "v"):
         assert float((gc[name].cpu() - wc[name]).abs().max()) < 1e-4
+
+
+def paper_cfg(rows, **kw):
+    """The benchmark's paper-208 configuration (``portbench/configs/``)
+    at ``rows`` x ``rows`` routers."""
+    return SimConfig(rows=rows, cols=rows, centralized_directory=False,
+                     dir_layout="home", state_dtype_policy="packed", **kw)
+
+
+#: the benchmark's sweep4 scenarios (seed, migration off, eject age 8,
+#: migrate threshold 1) over two seeds
+SWEEP4 = [("random", 11, 64, {}),
+          ("random", 11, 64, {"migration_enabled": False}),
+          ("random", 12, 64, {"eject_age_threshold": 8}),
+          ("random", 12, 64, {"migrate_threshold": 1})]
+#: (config, scenarios, cycles, chunk, the first scenario's abort); the
+#: centralized directory saturates at 32x32 by the second 64-cycle edge
+GRAPHED = {
+    "solo": (paper_cfg(32), SWEEP4[:1], 200, 8, 0),
+    "sweep4": (paper_cfg(32), SWEEP4, 200, 8, 0),
+    "saturation-abort": (SimConfig(rows=32, cols=32, sat_window=64,
+                                   state_dtype_policy="packed"),
+                         [("random", 5, 64, {})], 256, 8,
+                         sim.ABORT_SATURATION),
+}
+
+
+@pytest.mark.parametrize("name", list(GRAPHED))
+def test_graphed_drive_equals_eager_steps(cuda, name):
+    """``_drive`` on the card replays each scenario's cycle as a CUDA
+    graph over its own state: every statistic, abort record and state
+    leaf equals eager ``VectorSim.step``'s, each scenario's leaves stay
+    where they are, every scenario-cycle after a scenario's first is a
+    replay, and K1 counts one launch a scenario-cycle."""
+    import torch_drive_eager as de
+    cfg, scenarios, cycles, chunk, abort = GRAPHED[name]
+    d = de.drive(cfg, scenarios, cycles, chunk, cuda)
+    b = len(scenarios)
+    assert sim.stats_list(d.out, d.aux) == [w for w, _, _ in d.want]
+    assert d.records() == [r for _, r, _ in d.want]
+    assert d.records()[0][0] == abort
+    assert d.unequal_leaves() == []
+    assert d.counters["graph_captures"] == b
+    assert d.counters["graph_replays"] == b * (d.steps - 1)
+    assert d.launches == b * d.steps and len(d.ptrs) == b * d.steps
+    per = [d.ptrs[i::b] for i in range(b)]
+    assert all(p == p[:1] * len(p) for p in per)
+    assert [x.data_ptr() for x in d.state] == d.before
+    assert d.shared == []
+
+
+def test_graphed_run_holds_no_more_memory_than_eager_steps(cuda,
+                                                           monkeypatch):
+    """A graphed ``run`` peaks in device memory above the same run
+    stepped eagerly (each scenario's cycle run in place, with the same
+    monitors) by no more than the graphs' bookkeeping, at 32x32 and at
+    64x64 alike: the graphs' shared pool holds one cycle's work, as an
+    eager cycle does.  The bookkeeping is PyTorch's RNG seed and offset
+    for a capture and K1's scratch words for the capture stream, a
+    512-byte block each, whatever the mesh."""
+    from repro_torch.core.workloads import resolve_trace
+
+    def peak(cfg, tr):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        LAUNCHES.reset()
+        out = sim.run(cfg, tr, max_cycles=40, chunk=8)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, out, LAUNCHES.n
+
+    for rows in (32, 64):
+        cfg = paper_cfg(rows)
+        tr = resolve_trace(cfg, "random", 64, 3)
+        graphed = peak(cfg, tr)
+        with monkeypatch.context() as m:
+            m.setattr(sim.CycleGraph, "step", lambda self, body: body())
+            eager = peak(cfg, tr)
+        assert graphed[1:] == eager[1:] and eager[2] == 40
+        assert graphed[0] - eager[0] <= 3 * 512, (rows, graphed[0],
+                                                  eager[0])
