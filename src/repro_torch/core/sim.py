@@ -17,7 +17,9 @@ inside a Python loop.  The counterpart of the JAX package's
   narrowed straight into the scenario's own tensors.  On a CUDA device
   each scenario's cycle is captured once as a CUDA graph
   (:class:`CycleGraph`) and replayed, one launch a scenario-cycle in
-  place of ~1,500 eager ones; elsewhere it runs eagerly.
+  place of ~1,500 eager ones, and writes its L1 and L2 arrays entry by
+  entry where it touches them; elsewhere the pure cycle runs eagerly
+  and its result is written back.
 * Termination is checked once per K-cycle chunk (one host sync a chunk);
   the tail then steps cycle by cycle up to ``max_cycles``.  Neither a
   phase nor the monitors sync with the host on every cycle.
@@ -43,13 +45,13 @@ import torch
 from ..device import resolve_device
 from ..kernels import router_phase
 from ..tracing import RECORDER
-from .cache import phase1a, phase1b
+from .cache import phase1a, phase1b, stored, unstored
 from .config import ST_DONE, ST_WAIT_DATA, ST_WAIT_DIR, SimConfig
 from .noc import phase2, phase3
-from .state import (F_DST, F_VALID, I32, P_VALID, R_NFL, STAT_NAMES,
-                    Geometry, NodeCtx, SimState, fold_stats, geometry_to,
-                    init_state, leaf_dtypes, make_geometry, make_node_ctx,
-                    narrow_state, stats_totals, widen_state)
+from .state import (CACHE_LEAVES, F_DST, F_VALID, I32, P_VALID, R_NFL,
+                    STAT_NAMES, Geometry, NodeCtx, SimState, fold_stats,
+                    geometry_to, init_state, leaf_dtypes, make_geometry,
+                    make_node_ctx, narrow_state, stats_totals, widen_state)
 
 __all__ = ["cycle_step", "CycleGraph", "finished", "run", "stats_list",
            "stats_dicts", "diag_counts", "DIAG_FIELDS", "ExecAux",
@@ -132,9 +134,9 @@ def cycle_step(s: SimState, cfg: SimConfig, geo: Geometry,
 
     Without ``graph`` the step is pure: it returns a new state.  With
     ``graph``, the scenario's :class:`CycleGraph` on a CUDA device, the
-    cycle is stepped in place, each leaf narrowed straight into ``s``'s
-    own tensor, and ``s`` is returned: the graph's first step runs the
-    cycle eagerly and captures it, every later step replays the capture.
+    cycle is stepped in place (:func:`_cycle` with ``in_place``) and
+    ``s`` is returned: the graph's first step runs the cycle eagerly and
+    captures it, every later step replays the capture.
 
     With :data:`repro_torch.tracing.RECORDER` on, the cycle is a
     ``cycle`` span holding ``cast`` (entry; exit), ``phase1a``,
@@ -143,30 +145,35 @@ def cycle_step(s: SimState, cfg: SimConfig, geo: Geometry,
     with RECORDER.span("cycle"):
         if graph is None:
             return _cycle(s, cfg, geo, ctx)
-        graph.step(lambda: _cycle(s, cfg, geo, ctx, into=s))
+        graph.step(lambda: _cycle(s, cfg, geo, ctx, in_place=True))
         return s
 
 
 def _cycle(s: SimState, cfg: SimConfig, geo: Geometry, ctx: NodeCtx,
-           into: Optional[SimState] = None) -> SimState:
-    """:func:`cycle_step`'s phases; the new state is narrowed into
-    ``into``'s tensors where given (:func:`state.narrow_state`)."""
+           in_place: bool = False) -> SimState:
+    """:func:`cycle_step`'s phases.  ``in_place`` steps ``s`` itself and
+    returns it: the L1 and L2 arrays stay in their storage dtypes all
+    cycle, the phases reading and writing only the rows they touch
+    (``cache.Stored``), and every other leaf is narrowed back into
+    ``s``'s own tensor (:func:`state.narrow_state`)."""
     dtypes = leaf_dtypes(cfg, s.trace.shape[-1])
     with RECORDER.span("cast"):
-        s = widen_state(s)
+        w = (stored(widen_state(s, CACHE_LEAVES)) if in_place
+             else widen_state(s))
     with RECORDER.span("phase1a"):
-        s = phase1a(s, cfg, ctx)
+        w = phase1a(w, cfg, ctx)
     with RECORDER.span("phase1b"):
-        s = phase1b(s, cfg, ctx)
+        w = phase1b(w, cfg, ctx)
     with RECORDER.span("phase2"):
-        s, arb = phase2(s, cfg, ctx)
+        w, arb = phase2(w, cfg, ctx)
     with RECORDER.span("phase3"):
-        s = phase3(s, cfg, geo, ctx, arb)
+        w = phase3(w, cfg, geo, ctx, arb)
     with RECORDER.span("cast"):
-        hi, lo = fold_stats(s.stats_hi, s.stats)
-        return narrow_state(
-            s._replace(cycle=s.cycle + 1, stats=lo, stats_hi=hi), dtypes,
-            into)
+        hi, lo = fold_stats(w.stats_hi, w.stats)
+        w = w._replace(cycle=w.cycle + 1, stats=lo, stats_hi=hi)
+        if in_place:
+            return narrow_state(unstored(w), dtypes, into=s)
+        return narrow_state(w, dtypes)
 
 
 class CycleGraph:
@@ -181,12 +188,14 @@ class CycleGraph:
     memory pool ``pool``: they replay one after another on one stream,
     and once a cycle has written the state back nothing in the pool is
     read again.  A replay adds the K1 launches the capture holds to
-    ``router_phase.LAUNCHES``."""
+    ``router_phase.LAUNCHES``, and the recorder's counts the capture made
+    (``cache_write_bytes``) to the recorder's counters."""
 
     def __init__(self, stream: torch.cuda.Stream, pool):
         self.stream, self.pool = stream, pool
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches = 0
+        self.counts: Dict[str, int] = {}
 
     def step(self, body: Callable[[], object]) -> None:
         """Step the cycle that ``body`` computes in place: eagerly and
@@ -197,6 +206,8 @@ class CycleGraph:
         with RECORDER.span("replay"):
             self.graph.replay()
         RECORDER.count("graph_replays")
+        for k, n in self.counts.items():
+            RECORDER.count(k, n)
         router_phase.LAUNCHES.n += self.launches
 
     def _capture(self, body: Callable[[], object]) -> None:
@@ -206,11 +217,12 @@ class CycleGraph:
             body()
             graph = torch.cuda.CUDAGraph()
             before = router_phase.LAUNCHES.n
-            graph.capture_begin(pool=self.pool)
-            try:
-                body()
-            finally:
-                graph.capture_end()
+            with RECORDER.tally() as self.counts:
+                graph.capture_begin(pool=self.pool)
+                try:
+                    body()
+                finally:
+                    graph.capture_end()
         here.wait_stream(self.stream)
         # captured, not launched: the replays count them
         self.launches = router_phase.LAUNCHES.n - before

@@ -10,7 +10,10 @@ Storage layout is configurable (``SimConfig.state_dtype_policy``):
 ``"wide"`` keeps every leaf int32; ``"packed"`` gives each leaf the
 smallest of int8/int16/int32 that holds its validated value bounds
 (:func:`leaf_dtypes`).  All phase code computes in int32 either way —
-:func:`widen_state` / :func:`narrow_state` cast at the cycle boundary.
+:func:`widen_state` / :func:`narrow_state` cast at the cycle boundary,
+but a cycle stepped in place keeps the L1 and L2 arrays
+(:data:`CACHE_LEAVES`) narrow and widens only the entries it reads
+(``cache.Stored``).
 
 Statistics are carried as a base-2**30 (hi, lo) int32 pair (``stats_hi``,
 ``stats``), as in the JAX package: the low word is folded into the high
@@ -35,6 +38,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..tracing import RECORDER
 from .config import NUM_MSG_TYPES, NUM_PORTS, SimConfig
 
 I32 = torch.int32
@@ -391,14 +395,42 @@ def leaf_dtypes(cfg: SimConfig, trace_len: int) -> Dict[str, torch.dtype]:
     return out
 
 
-def widen_state(s: SimState) -> SimState:
+#: the L1 and L2 arrays, (N, sets, ways) each: a cycle stepped in place
+#: keeps them in their storage dtypes and writes only the rows it
+#: touches (``cache.Stored``)
+CACHE_LEAVES = ("l1_tag", "l1_lru", "l1_owner", "l2_tag", "l2_lru",
+                "l2_mig", "l2_last", "l2_streak")
+
+
+def _cast_whole(k: str, v: torch.Tensor, itemsize: int) -> None:
+    """Count a whole-leaf cast or copy that writes ``itemsize`` bytes an
+    entry, where ``k`` is a cache leaf (``cache_cast_bytes``)."""
+    if RECORDER.counting and k in CACHE_LEAVES:
+        RECORDER.count("cache_cast_bytes", v.numel() * itemsize)
+
+
+def widen_state(s: SimState, keep: Tuple[str, ...] = ()) -> SimState:
     """Cast every narrow leaf up to the int32 compute domain.
 
     ``trace`` is exempt: it is read-only during the run and its single
-    consumer (``cache._next_addr``) casts after the gather.
+    consumer (``cache._next_addr``) casts after the gather.  So are the
+    leaves named in ``keep``.
     """
-    return SimState(*(v if k == "trace" or v.dtype == I32 else v.to(I32)
-                      for k, v in zip(SimState._fields, s)))
+    def up(k, v):
+        if k == "trace" or k in keep or v.dtype == I32:
+            return v
+        _cast_whole(k, v, 4)
+        return v.to(I32)
+    return SimState(*(up(k, v) for k, v in zip(SimState._fields, s)))
+
+
+def saturate(k: str, v: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``v``, values of leaf ``k``, ready to be cast to its storage dtype
+    ``dt``: ``l2_streak`` clamped at int16 max where the cast narrows it
+    (see :func:`narrow_state`), any other leaf as it is."""
+    if k == "l2_streak" and v.dtype != dt:
+        return torch.clamp(v, max=torch.iinfo(torch.int16).max)
+    return v
 
 
 def narrow_state(s: SimState, dtypes: Dict[str, torch.dtype],
@@ -419,13 +451,11 @@ def narrow_state(s: SimState, dtypes: Dict[str, torch.dtype],
     """
     def down(k, v, dst):
         dt = dtypes[k]
-        if v is dst:
+        if v is dst or (dst is None and v.dtype == dt):
             return v
-        if k == "l2_streak" and v.dtype != dt:
-            v = torch.clamp(v, max=torch.iinfo(torch.int16).max)
-        if dst is not None:
-            return dst.copy_(v)
-        return v if v.dtype == dt else v.to(dt)
+        _cast_whole(k, v, dt.itemsize)
+        v = saturate(k, v, dt)
+        return v.to(dt) if dst is None else dst.copy_(v)
     dsts = into if into is not None else (None,) * len(s)
     return SimState(*(down(k, v, d)
                       for k, v, d in zip(SimState._fields, s, dsts)))

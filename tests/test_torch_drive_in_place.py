@@ -9,16 +9,22 @@ of ``_drive`` equal those of stepping each scenario alone through
 ``VectorSim.step``, solo and as a sweep with differing knobs, over chunk
 boundaries and monitor edges; no leaf moves; no output leaf of a cycle
 shares memory with another input leaf; and on the CPU nothing is
-captured or replayed."""
+captured or replayed.  The cycle a CUDA graph captures
+(``sim._cycle`` with ``in_place``), driven here on the CPU in place of
+the pure step, equals it too, and reads and writes no whole L1 or L2
+array."""
+import collections
 import functools
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.core import sim, sweep
-from repro_torch.core.config import SimConfig
-from repro_torch.core.state import (STAT_NAMES, SimState, init_state,
-                                    leaf_dtypes, narrow_state, stats_totals)
+from repro_torch.core import cache, sim, sweep
+from repro_torch.core.config import CacheConfig, SimConfig
+from repro_torch.core.state import (CACHE_LEAVES, STAT_NAMES, SimState,
+                                    init_state, leaf_dtypes, narrow_state,
+                                    stats_totals)
 from repro_torch.core.workloads import resolve_trace
 
 import torch_drive_eager as de
@@ -134,3 +140,121 @@ def test_narrow_state_into_casts_in_place_and_keeps_shared_leaves():
     assert (dst.l2_streak == torch.iinfo(torch.int16).max).all()
     assert torch.equal(dst.pkt_ctr, narrow_state(wide, dtypes).pkt_ctr)
     assert stats_totals(dst.stats_hi, dst.stats).sum() == 3 * len(STAT_NAMES)
+
+
+#: Table 4's caches cut to a few entries a node (L1 2 sets x 4 ways, L2 2
+#: x 4) under matmul, migration on a single remote hit: within 200
+#: cycles L1 and L2 blocks are evicted, L2 hits and migrations fire, and
+#: two writes of one cycle land in one node's row of one array.  (At 8
+#: L2 ways no L2 block is evicted in a CPU test's few hundred cycles;
+#: the card's test runs Table 4 row 1 itself.)
+TINY = SimConfig(**dict(CFG, cache=CacheConfig(l1_sets=2, l1_ways=4,
+                                               l2_sets=2, l2_ways=4),
+                        livelock_window=None, migrate_threshold=1,
+                        centralized_directory=False, dir_layout="home"))
+
+
+def _flat(xs):
+    for x in xs:
+        if isinstance(x, (list, tuple)):
+            yield from x
+        else:
+            yield x
+
+
+class Watch(TorchDispatchMode):
+    """Every operation that reads or writes one of the arrays ``leaves``
+    other than by gathering entries (``index``) or writing them
+    (``index_put_``), and every new tensor of an array's shape."""
+
+    def __init__(self, leaves):
+        super().__init__()
+        self.ptrs = {x.untyped_storage().data_ptr() for x in leaves}
+        self.shapes = {tuple(x.shape) for x in leaves}
+        self.bad = []
+
+    def mine(self, x):
+        return (isinstance(x, torch.Tensor)
+                and x.untyped_storage().data_ptr() in self.ptrs)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (any(self.mine(a) for a in _flat(args))
+                and func not in (torch.ops.aten.index.Tensor,
+                                 torch.ops.aten.index_put_.default)):
+            self.bad.append(str(func))
+        self.bad.extend(str(func) for o in _flat((out,))
+                        if isinstance(o, torch.Tensor) and not self.mine(o)
+                        and tuple(o.shape) in self.shapes)
+        return out
+
+
+#: cycles run under :class:`Watch` (it costs ~50 us an operation here):
+#: the phases issue the same operations every cycle, whatever the data
+WATCHED = range(0, 200, 20)
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_in_place():
+    """The TINY case driven in place, the cycles of WATCHED watched, and
+    every entry each cycle wrote where its row's mask held, as ``(leaf,
+    cycle, node, set, way, old value, new value)``."""
+    watches, rows = [], []
+    real = cache.put
+    cycle = 0
+
+    def put(t, idx, mask, val):
+        if not isinstance(t, cache.Stored):       # the pure steps
+            return real(t, idx, mask, val)
+        old = t.t[idx].to(torch.int32)
+        out = real(t, idx, mask, val)
+        rows.append((t.name, cycle, torch.stack(
+            [*idx, old, t.t[idx].to(torch.int32)])[:, mask]))
+        return out
+
+    def step(x, cfg, geo, ctx):
+        nonlocal cycle
+        if cycle in WATCHED:
+            with Watch([getattr(x, k) for k in CACHE_LEAVES]) as w:
+                out = de.in_place(x, cfg, geo, ctx)
+            watches.append(w)
+        else:
+            out = de.in_place(x, cfg, geo, ctx)
+        cycle += 1
+        return out
+    cache.put = put
+    try:
+        d = de.drive(TINY, [("matmul", 3, 64, {})], 200, 8, "cpu",
+                     cycle=step)
+    finally:
+        cache.put = real
+    return d, watches, [(k, c, *r) for k, c, e in rows
+                        for r in e.t().tolist()]
+
+
+def test_in_place_cycle_equals_the_pure_step_where_caches_evict():
+    d, _, rows = tiny_in_place()
+    assert d.steps == 200
+    got = sim.stats_list(d.out, d.aux)
+    assert got == [w for w, _, _ in d.want]
+    assert d.records() == [r for _, r, _ in d.want]
+    assert d.unequal_leaves() == []
+    st = got[0]
+    assert st["l2_local_hits"] and st["migrations"] and st["l1_hits"]
+    assert st["wb_sent"] + st["wb_miss"]          # L1 victims
+    evicted = collections.Counter(
+        k for k, _, _, _, _, old, new in rows
+        if k in ("l1_tag", "l2_tag") and 0 <= old != new >= 0)
+    assert evicted["l1_tag"] and evicted["l2_tag"]
+    # two writes of one cycle into one entry of one node, in order
+    seen = collections.Counter(r[:5] for r in rows)
+    assert max(seen.values()) >= 2
+
+
+def test_in_place_cycle_touches_no_whole_cache_array():
+    d, watches, _ = tiny_in_place()
+    assert len(watches) == len(WATCHED)
+    assert all(w.bad == [] for w in watches)
+    assert d.counters["cache_write_bytes"] == d.steps * \
+        de.in_place_write_bytes(TINY, d.state.trace.shape[-1])
+    assert "cache_cast_bytes" not in d.counters

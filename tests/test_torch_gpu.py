@@ -15,7 +15,7 @@ import dataclasses
 from repro_torch import convert
 from repro_torch.configs import registry
 from repro_torch.core import sim
-from repro_torch.core.config import SimConfig
+from repro_torch.core.config import CacheConfig, SimConfig
 from repro_torch.core.workloads import app_trace
 from repro_torch.kernels import flash_attention, ops
 from repro_torch.kernels.ref import (arbitrate_ref, attention_ref,
@@ -658,10 +658,15 @@ SWEEP4 = [("random", 11, 64, {}),
           ("random", 11, 64, {"migration_enabled": False}),
           ("random", 12, 64, {"eject_age_threshold": 8}),
           ("random", 12, 64, {"migrate_threshold": 1})]
+#: Table 4 row 1's caches (``portbench/configs/paper-208-bigcache.json``)
+TABLE4_ROW1 = CacheConfig(l1_sets=128, l1_ways=4, l1_block=32,
+                          l2_sets=512, l2_ways=8, l2_block=64)
 #: (config, scenarios, cycles, chunk, the first scenario's abort); the
 #: centralized directory saturates at 32x32 by the second 64-cycle edge
 GRAPHED = {
     "solo": (paper_cfg(32), SWEEP4[:1], 200, 8, 0),
+    "table4-row1-matmul": (paper_cfg(32, cache=TABLE4_ROW1),
+                           [("matmul", 11, 256, {})], 200, 8, 0),
     "sweep4": (paper_cfg(32), SWEEP4, 200, 8, 0),
     "saturation-abort": (SimConfig(rows=32, cols=32, sat_window=64,
                                    state_dtype_policy="packed"),
@@ -676,7 +681,10 @@ def test_graphed_drive_equals_eager_steps(cuda, name):
     graph over its own state: every statistic, abort record and state
     leaf equals eager ``VectorSim.step``'s, each scenario's leaves stay
     where they are, every scenario-cycle after a scenario's first is a
-    replay, and K1 counts one launch a scenario-cycle."""
+    replay, and K1 counts one launch a scenario-cycle.  The cache arrays
+    are written in place, one entry a node a write, and never cast
+    whole: the first cycle counts its writes, each replay adds what its
+    capture counted."""
     import torch_drive_eager as de
     cfg, scenarios, cycles, chunk, abort = GRAPHED[name]
     d = de.drive(cfg, scenarios, cycles, chunk, cuda)
@@ -688,6 +696,9 @@ def test_graphed_drive_equals_eager_steps(cuda, name):
     assert d.counters["graph_captures"] == b
     assert d.counters["graph_replays"] == b * (d.steps - 1)
     assert d.launches == b * d.steps and len(d.ptrs) == b * d.steps
+    assert d.counters["cache_write_bytes"] == b * d.steps * \
+        de.in_place_write_bytes(cfg, d.state.trace.shape[-1])
+    assert "cache_cast_bytes" not in d.counters
     per = [d.ptrs[i::b] for i in range(b)]
     assert all(p == p[:1] * len(p) for p in per)
     assert [x.data_ptr() for x in d.state] == d.before

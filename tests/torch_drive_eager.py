@@ -11,11 +11,19 @@ import torch
 from repro_torch import tracing
 from repro_torch.core import sim
 from repro_torch.core.config import ST_WAIT_DATA, ST_WAIT_DIR, SimConfig
-from repro_torch.core.state import STAT_NAMES, SimState, init_state
+from repro_torch.core.state import (STAT_NAMES, SimState, init_state,
+                                    leaf_dtypes)
 from repro_torch.core.sweep import ScenarioSpec, SweepSpec
 from repro_torch.kernels import router_phase
 
 PROGRESS = [k for k in STAT_NAMES if k not in ("hops", "deflections")]
+#: the writes a cycle makes into each L1 and L2 array, whatever the
+#: traffic: ``install_l2`` twice (tag, mig, last, streak), phase 1a's
+#: migration trigger (last, streak, mig) and migration acks (tag, mig
+#: twice, streak), one LRU touch of each level in phase 1a and in phase
+#: 1b, ``install_l1`` twice (tag, owner) and phase 1b's second L1 touch
+CACHE_WRITES = {"l1_tag": 2, "l1_lru": 3, "l1_owner": 2, "l2_tag": 3,
+                "l2_lru": 2, "l2_mig": 5, "l2_last": 3, "l2_streak": 4}
 DIAG_KEYS = ("circulating_flits", "wait_dir_nodes", "wait_data_nodes",
              "stalled_queues", "flits_to_node0")
 
@@ -97,13 +105,31 @@ class Driven(NamedTuple):
                 if u.dtype != v.dtype or not torch.equal(u, v)]
 
 
+def in_place_write_bytes(cfg: SimConfig, trace_len: int) -> int:
+    """``cache_write_bytes`` of one cycle stepped in place: each write
+    covers one entry a node, in its array's storage dtype."""
+    dt = leaf_dtypes(cfg, trace_len)
+    return sum(n * cfg.num_nodes * dt[k].itemsize
+               for k, n in CACHE_WRITES.items())
+
+
+def in_place(x: SimState, cfg: SimConfig, geo, ctx) -> SimState:
+    """A ``cycle_step`` that steps ``x`` in place, as a CUDA graph's
+    capture does (``sim._cycle`` with ``in_place``), and returns it: in
+    place of the pure step, it has ``_drive`` on the CPU step every
+    scenario in place, and the driver's write-back then finds nothing to
+    copy."""
+    return sim._cycle(x, cfg, geo, ctx, in_place=True)
+
+
 def drive(cfg: SimConfig, scenarios: Sequence[Tuple], cycles: int,
-          chunk: int, device) -> Driven:
+          chunk: int, device, cycle=None) -> Driven:
     """Drive the scenarios ``(app, seed, refs, knobs)`` (one: a solo
     state; more: a batch with each scenario's knobs) for ``cycles``
     with ``_drive`` on ``device``, the recorder on and ``cycle_step``
-    watched; then step each alone with :func:`eager` for as many cycles
-    as the drive stepped."""
+    (or ``cycle`` in its place, such as :func:`in_place`) watched; then
+    step each alone with :func:`eager` for as many cycles as the drive
+    stepped."""
     spec = SweepSpec(cfg, tuple(ScenarioSpec(a, seed, refs, **k)
                                 for a, seed, refs, k in scenarios))
     traces = spec.traces()
@@ -117,7 +143,7 @@ def drive(cfg: SimConfig, scenarios: Sequence[Tuple], cycles: int,
                                           spec.knob_arrays())})
     before = [x.data_ptr() for x in s]
     ptrs, shared = [], []
-    real = sim.cycle_step
+    real = cycle or sim.cycle_step
 
     def step(x, cfg, geo, ctx, *graph):
         ptrs.append([y.data_ptr() for y in x])
@@ -132,11 +158,11 @@ def drive(cfg: SimConfig, scenarios: Sequence[Tuple], cycles: int,
     tracing.RECORDER.drain()
     tracing.RECORDER.start()
     launches = router_phase.LAUNCHES.n
-    sim.cycle_step = step
+    saved, sim.cycle_step = sim.cycle_step, step
     try:
         out, aux = sim._drive(s, cfg, cycles, chunk)
     finally:
-        sim.cycle_step = real
+        sim.cycle_step = saved
         tracing.RECORDER.stop()
     launches = router_phase.LAUNCHES.n - launches
     spans, counters = tracing.RECORDER.drain()
