@@ -8,9 +8,10 @@ what it found; any failure exits non-zero and no phase's failure is
 caught:
 
 1. card      — the card's name and power limit, from ``nvidia-smi``;
-2. build     — compile both sources in ``src/repro_torch/kernels/csrc/``
-   (the router kernels and K2) with ``nvcc`` for ``sm_90a``, one ``nvcc``
-   per source, started together; prints ptxas's register/spill report;
+2. build     — compile the three sources in
+   ``src/repro_torch/kernels/csrc/`` (the router kernels, the cache-phase
+   kernel and K2) with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
+   started together; prints ptxas's register/spill report;
 3. kernel    — K1 (router arbitration alone) against its plain PyTorch
    version, bit-exact on seeded cases (n = 1..400, 127/128/129 and the
    208x208 mesh's 43,264 routers: every case launched on the card, one
@@ -28,6 +29,18 @@ caught:
    profiler's device time beside) against its byte bound and the eager
    Phase 2 (the plain version on CUDA tensors: the profiler's device
    time and launches);
+3c. kernel-cache — the cache-phase kernel, which the captured cycle runs
+   once a cycle in place of Phases 1a and 1b: on paper-208 states (64
+   refs a core) after cycles 16, 48 and 80, widened as the in-place
+   cycle widens them, one launch (counted once) equals
+   ``phase1b(phase1a(...))`` on the same state in every leaf, the sink
+   slots and ``stats`` included, the L1 and L2 arrays in their storage
+   dtypes; timed at 43,264 nodes on the last state (the profiler's device
+   time, each call on a fresh copy) beside the torch phases on the card
+   (device time and launches) and its byte bound (``c1_bytes``); then K1
+   in the graphed cycle, timed after the kernel, after the kernel and a
+   write that empties the L2, and after the torch phases (the three
+   runs' statistics equal);
 4. kernel-K2 — K2 (flash attention, on the tensor cores: bf16, and
    float32 in three TF32 passes) against ``attention_ref`` at the four
    ``tests/test_kernels.py`` shapes, grouped-query cases at D 32, 64 and
@@ -49,13 +62,14 @@ caught:
 5. wedge     — the former S14 wedge (16x16, distributed directory,
    ``app_trace_loop(cfg, "matmul", 20, 0)``) run to completion on the
    card through ``run``; its statistics must equal the port's own CPU run
-   (plain versions), the fused Phase-2 kernel must have launched once a
-   stepped cycle and the standalone arbitration never;
+   (plain versions), the fused Phase-2 kernel and the cache-phase kernel
+   must each have launched once a stepped cycle and the standalone
+   arbitration never;
 6. paper     — the paper's 208x208 mesh, packed state, 32 cycles, exactly
    as ``benchmarks/paper_scale.py --smoke`` runs it; its statistics must
    equal ``BENCH_paper_scale.json`` ``raw.stats`` (the JAX package's
-   output, read as data), with one fused Phase-2 launch a cycle and no
-   standalone arbitration; then a longer run at the same mesh is timed,
+   output, read as data), with one fused Phase-2 launch and one
+   cache-phase kernel launch a cycle and no standalone arbitration; then a longer run at the same mesh is timed,
    and a window of it profiled (device busy share, launches a cycle, the
    fused kernel once a cycle by name);
 6b. sweep-208 — the multi-scenario front end at the paper's scale: a
@@ -64,7 +78,8 @@ caught:
    threshold 8, seed 1 migration threshold 1).  Scenario 0 must equal
    ``BENCH_paper_scale.json`` ``raw.stats``, each scenario its solo
    ``run`` on the card (``run_sequential``), with 4 x 32 fused Phase-2
-   launches and no standalone arbitration; prints ms per scenario-cycle
+   launches, as many cache-phase kernel launches and no standalone
+   arbitration; prints ms per scenario-cycle
    beside the solo runs' and paper-208's, and the peak device memory
    beside the planner's ``plan_state_bytes``;
 6d. sharded — the multi-device simulator (``core/sharded.py``) at
@@ -207,9 +222,10 @@ caught:
    ranks time-sharing one card, not a scaling result.
 
 The two lines before the last are the card (as ``nvidia-smi`` gives it)
-and one JSON object with the three kernels' numbers (K1 alone, the fused
-Phase-2 kernel, K2; the fused kernel's launches count every rank of
-the sharded phase, K2's every family's prefill and every rank's sharded
+and one JSON object with the kernels' numbers (K1 alone, the fused
+Phase-2 kernel, the cache-phase kernel, K2; the fused kernel's launches
+count every rank of the sharded phase, the cache-phase kernel's those of
+paper-208 and sweep-208, K2's every family's prefill and every rank's sharded
 prefill, also listed by rank); the last line is
 ``{"ok": true, "device": {...}}``.  Without a GPU it exits non-zero and
 prints no result.
@@ -279,6 +295,15 @@ P2_CASES = ([(n, 8, 4, 64, 4, 4, 0) for n in (1, 2, 3, 16, 31, 33)]
 WEDGE_SNAPSHOTS = (300, 900)
 PAPER_SNAPSHOTS = (8, 24)
 P2_SYMBOL = "phase2_router_kernel"
+#: cycles after which paper-208's timed run (64 refs a core) is taken for
+#: the cache-phase kernel's checks; the state at the last is timed
+C1_SNAPSHOTS = (16, 48, 80)
+C1_SYMBOL = "phase1_cache_kernel"
+#: cycles of the graphed paper-208 runs in which K1 is timed after phase 1
+#: (the second half of their K1 launches), and the bytes written between
+#: phase 1 and K1 to empty the card's 50 MB L2
+K1_AFTER_CYCLES = 96
+L2_FLUSH_BYTES = 256 << 20
 
 PAPER_CYCLES = 32
 TIMED_CYCLES = 256
@@ -775,6 +800,193 @@ def phase_kernel_phase2(dev):
     }
 
 
+def c1_bytes(w) -> int:
+    """Bytes the cache-phase kernel moves on the working state ``w``
+    whatever a node's branch: each node reads nine of its own words
+    (``st``, ``ctr``, ``tr_ptr``, ``pend_addr``, ``install_mode``,
+    ``pkt_ctr``, ``lru_clock``, ``q_size``, ``q_head``), its pending
+    queue's head row and one trace word, and writes eight of those words
+    back and one send-queue row (the sink slot where nothing is sent).
+    What a firing handler touches besides (forwarding table, directory
+    word, L1 and L2 sets) depends on the traffic and is not counted."""
+    n = w.st.shape[0]
+    word = w.st.element_size()
+    head = w.pc.shape[-1] * w.pc.element_size()
+    row = w.q_desc.shape[-1] * w.q_desc.element_size()
+    return n * (9 * word + head + w.trace.element_size() + 8 * word + row)
+
+
+def k1_after_phase1(dev, cfg, tr, phase1) -> tuple:
+    """A graphed ``run`` of ``K1_AFTER_CYCLES`` cycles with
+    ``cache_phase.phase1_cache_cuda`` replaced by ``phase1`` (None: the
+    kernel itself), profiled.  Returns its statistics, K1's mean device
+    time a launch in us over the second half of its launches, and the
+    device operations that ran just before those launches, by count; the
+    time is None where the profiler records no device activity."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.sim import run
+    from repro_torch.kernels import cache_phase
+    saved = cache_phase.phase1_cache_cuda
+    cache_phase.phase1_cache_cuda = phase1 or saved
+    try:
+        run(cfg, tr, max_cycles=8, chunk=8, device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = run(cfg, tr, max_cycles=K1_AFTER_CYCLES,
+                      chunk=K1_AFTER_CYCLES, device=dev)
+            torch.cuda.synchronize()
+    finally:
+        cache_phase.phase1_cache_cuda = saved
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    k1 = [i for i, e in enumerate(ev) if P2_SYMBOL in e.name]
+    half = k1[len(k1) // 2:]
+    if not half:
+        return got, None, {}
+    us = sum(ev[i].time_range.elapsed_us() for i in half) / len(half)
+    return got, us, dict(collections.Counter(ev[i - 1].name[:60]
+                                             for i in half))
+
+
+def phase_kernel_cache(dev):
+    """The cache-phase kernel against the torch phases on paper-208
+    mid-run states, timed beside them; then K1 timed after each of them
+    in the graphed cycle.  Returns the kernel's record."""
+    import torch
+    from repro_torch.core.cache import phase1a, phase1b, stored, unstored
+    from repro_torch.core.sim import VectorSim
+    from repro_torch.core.state import CACHE_LEAVES, SimState, widen_state
+    from repro_torch.core.workloads import random_trace
+    from repro_torch.kernels.cache_phase import LAUNCHES, phase1_cache_cuda
+
+    cfg = paper_config(TIMED_CYCLES)
+    tr = random_trace(cfg, refs_per_core=64, seed=0)
+    vs = VectorSim(cfg, tr, device=dev)
+    ctx = vs.ctx
+    widened = lambda s: SimState(*(x.clone() for x in  # noqa: E731
+                                   widen_state(s, CACHE_LEAVES)))
+    fired = []
+    for c in range(max(C1_SNAPSHOTS) + 1):
+        if c in C1_SNAPSHOTS:
+            s = vs.state
+            with torch.inference_mode():
+                want = phase1b(phase1a(widen_state(s), cfg, ctx), cfg, ctx)
+                w = widened(s)
+                before = LAUNCHES.n
+                if phase1_cache_cuda(w, cfg) is not w:
+                    fail("kernel-cache: the wrapper did not return the "
+                         "state it stepped in place")
+            if LAUNCHES.n != before + 1:
+                fail(f"kernel-cache: {LAUNCHES.n - before} launches counted "
+                     f"for one call (after cycle {c})")
+            for k, got, ref in zip(SimState._fields, w, want):
+                if k in CACHE_LEAVES and got.dtype != getattr(s, k).dtype:
+                    fail(f"kernel-cache: {k} came back {got.dtype}, stored "
+                         f"as {getattr(s, k).dtype} (after cycle {c})")
+                if not torch.equal(got.to(torch.int32), ref):
+                    bad = int((got.to(torch.int32) != ref).sum())
+                    fail(f"kernel-cache: {k} differs from phase1b(phase1a"
+                         f"(...)) in {bad} entries (after cycle {c})")
+            fired.append(int((want.stats - s.stats).sum()))
+        if c < max(C1_SNAPSHOTS):
+            vs.step()
+    if not all(fired):
+        fail(f"kernel-cache: the phase counted no statistic at some "
+             f"snapshot ({fired} increments)")
+    print(f"kernel-cache: phase1_cache bit-exact against phase1b(phase1a("
+          f"...)) on paper-208 (64 refs a core) after cycles "
+          f"{C1_SNAPSHOTS}: every leaf, the sink slots and the L1/L2 "
+          f"arrays in their storage dtypes included; {fired} statistic "
+          f"increments; one launch counted a call")
+
+    # timed on the last state: each call on a fresh copy of it (the
+    # kernel steps it in place), the kernel's own device time by the
+    # profiler; the torch phases on the same widened state, pure, in the
+    # profiler's device time and launches
+    src = widened(s)
+    w = widened(s)
+
+    def kernel():
+        for d, x in zip(w, src):
+            d.copy_(x)
+        phase1_cache_cuda(w, cfg)
+
+    ws = widen_state(s)
+    plain = lambda: phase1b(phase1a(ws, cfg, ctx), cfg, ctx)  # noqa: E731
+    iters, plain_iters = 100, 10
+    _, kern = device_profile(kernel, iters)
+    _, pl = device_profile(plain, plain_iters)
+    mine = [v for k, v in kern.items() if C1_SYMBOL in k]
+    if not mine or not pl:
+        fail(f"kernel-cache: the profiler recorded no device time "
+             f"({sorted(kern)[:4]})")
+    ms = sum(v[0] for v in mine) / iters
+    if sum(v[1] for v in mine) != iters:
+        fail(f"kernel-cache: {sum(v[1] for v in mine)} {C1_SYMBOL} "
+             f"launches in {iters} calls")
+    plain_ms = sum(v[0] for v in pl.values()) / plain_iters
+    plain_launches = sum(v[1] for v in pl.values()) / plain_iters
+    n = cfg.num_nodes
+    nbytes = c1_bytes(w)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"kernel-cache: n={n} (paper-208 after {C1_SNAPSHOTS[-1]} "
+          f"cycles) per call on the card: kernel {ms:.6f} ms "
+          f"(torch.profiler), the torch phases (plain version on the card) "
+          f"{plain_ms:.6f} ms in {plain_launches:.1f} launches a call; "
+          f"bound {bytes_ms:.6f} ms (bytes: {nbytes} B, {nbytes / n:.1f} "
+          f"B a node, at 3.35 TB/s); bound / kernel {bytes_ms / ms:.4f}; "
+          f"kernel / plain {ms / plain_ms:.4f}")
+
+    # K1 in the graphed cycle after the kernel, after the kernel and a
+    # write that empties the L2, and after the torch phases (over
+    # cache.Stored, the cycle the graph captured before the kernel): all
+    # three runs' statistics must agree
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+
+    def flushed(w, cfg):
+        phase1_cache_cuda(w, cfg)
+        flush.fill_(1)
+        return w
+
+    def torch_phases(w, cfg):
+        return unstored(phase1b(phase1a(stored(w), cfg, ctx), cfg, ctx))
+
+    k1 = {}
+    for name, fn in (("kernel", None), ("kernel+flush", flushed),
+                     ("torch", torch_phases)):
+        k1[name] = k1_after_phase1(dev, cfg, tr, fn)
+    base = k1["kernel"][0]
+    for name, (got, us, prev) in k1.items():
+        if got != base:
+            fail(f"kernel-cache: the graphed run with phase 1 as {name} "
+                 f"differs from the kernel's: {_diff(base, got)}")
+        print(f"kernel-cache: K1 after phase 1 as {name}, graphed, "
+              f"{K1_AFTER_CYCLES} cycles: "
+              + (f"{us:.3f} us a launch (torch.profiler, the second half "
+                 f"of its launches); just before it: {prev}"
+                 if us is not None else "no device time recorded"))
+    return {
+        "name": "phase1_cache",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cache_phase.cu",
+        "replaces": "src/repro_torch/core/cache.py phase1a + phase1b "
+                    "(no pl.pallas_call)",
+        "launches": None,
+        "max_abs_err": 0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bytes_ms,
+        "bound_by": "bytes",
+        "library_ms": None,     # no PyTorch call computes it
+        "k1_us_after": {k: v[1] for k, v in k1.items()},
+    }
+
+
 def wedge_case():
     """The former S14 wedge: (config, trace)."""
     from repro_torch.core.config import SimConfig
@@ -803,16 +1015,22 @@ def phase_wedge(dev, cpu_run) -> None:
     future of ``wedge_on_cpu``)."""
     import torch
     from repro_torch.core.sim import run
+    from repro_torch.kernels import cache_phase
     from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
 
     cfg, tr = wedge_case()
     LAUNCHES.reset()
     ARB_LAUNCHES.reset()
+    cache_phase.LAUNCHES.reset()
     t0 = time.perf_counter()
     gpu = run(cfg, tr, chunk=64, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = LAUNCHES.n
+    if cache_phase.LAUNCHES.n != launches:
+        fail(f"wedge: {cache_phase.LAUNCHES.n} cache-phase kernel launches "
+             f"and {launches} fused Phase-2 launches, expected one of each "
+             f"a stepped cycle")
     if gpu["finished"] != 1 or "aborted" in gpu:
         fail(f"wedge did not complete on the card: {gpu}")
     # the driver steps whole 64-cycle chunks, then cycle by cycle
@@ -829,7 +1047,8 @@ def phase_wedge(dev, cpu_run) -> None:
         fail(f"wedge: card and CPU statistics differ: {diff}")
     print(f"wedge: 16x16 completed in {gpu['cycles']} cycles "
           f"({gpu['send_drop']} drops recovered), card stats == CPU stats; "
-          f"fused Phase-2 launches {launches}, standalone arbitration "
+          f"fused Phase-2 launches {launches}, cache-phase kernel "
+          f"{cache_phase.LAUNCHES.n}, standalone arbitration "
           f"{ARB_LAUNCHES.n}; card {wall:.3f} s "
           f"({gpu['cycles'] / wall:.1f} cycles/s), CPU {cpu_wall:.3f} s "
           f"(two threads, in a child process beside the earlier phases)")
@@ -843,6 +1062,7 @@ def phase_paper(dev):
     import torch
     from repro_torch.core.sim import VectorSim, run
     from repro_torch.core.workloads import random_trace
+    from repro_torch.kernels import cache_phase
     from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
 
     with open(os.path.join(ROOT, "BENCH_paper_scale.json")) as f:
@@ -851,6 +1071,7 @@ def phase_paper(dev):
     tr = random_trace(cfg, refs_per_core=8, seed=0)
     LAUNCHES.reset()
     ARB_LAUNCHES.reset()
+    cache_phase.LAUNCHES.reset()
     t0 = time.perf_counter()
     got = run(cfg, tr, max_cycles=PAPER_CYCLES, chunk=PAPER_CYCLES,
               device=dev)
@@ -862,16 +1083,18 @@ def phase_paper(dev):
                 if want.get(k) != got.get(k)}
         fail(f"208x208 statistics differ from BENCH_paper_scale.json: "
              f"{diff}")
-    if launches != PAPER_CYCLES:
-        fail(f"208x208: {launches} fused Phase-2 launches in {PAPER_CYCLES} "
-             f"cycles, expected one a cycle")
+    if launches != PAPER_CYCLES or cache_phase.LAUNCHES.n != PAPER_CYCLES:
+        fail(f"208x208: {launches} fused Phase-2 and "
+             f"{cache_phase.LAUNCHES.n} cache-phase kernel launches in "
+             f"{PAPER_CYCLES} cycles, expected one of each a cycle")
     if arb_launches:
         fail(f"208x208: the standalone arbitration launched {arb_launches} "
              f"times, expected none")
     print(f"paper: 208x208 packed {PAPER_CYCLES} cycles == "
           f"BENCH_paper_scale.json raw.stats "
           f"({got['flits_delivered']} flits delivered, {got['hops']} hops); "
-          f"fused Phase-2 launches {launches}, standalone arbitration "
+          f"fused Phase-2 launches {launches}, cache-phase kernel "
+          f"{cache_phase.LAUNCHES.n}, standalone arbitration "
           f"{arb_launches}; {wall:.3f} s including set-up")
 
     # a longer run at the same mesh, timed after a short warm-up run
@@ -930,6 +1153,7 @@ def phase_sweep(dev, paper_ms: float):
     import torch
     from repro_torch.core.engine import plan_state_bytes
     from repro_torch.core.sweep import run_sequential, run_sweep
+    from repro_torch.kernels import cache_phase
     from repro_torch.kernels.router_phase import ARB_LAUNCHES, LAUNCHES
 
     with open(os.path.join(ROOT, "BENCH_paper_scale.json")) as f:
@@ -943,20 +1167,24 @@ def phase_sweep(dev, paper_ms: float):
     base_mem = torch.cuda.memory_allocated(dev)
     LAUNCHES.reset()
     ARB_LAUNCHES.reset()
+    cache_phase.LAUNCHES.reset()
     t0 = time.perf_counter()
     got = run_sweep(spec, max_cycles=PAPER_CYCLES, chunk=PAPER_CYCLES,
                     device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, arb_launches = LAUNCHES.n, ARB_LAUNCHES.n
+    cache_launches = cache_phase.LAUNCHES.n
     peak = torch.cuda.max_memory_allocated(dev) - base_mem
     if got[0] != want0:
         fail(f"sweep-208: scenario 0 differs from BENCH_paper_scale.json: "
              f"{_diff(want0, got[0])}")
-    if launches != b * PAPER_CYCLES or arb_launches:
-        fail(f"sweep-208: {launches} fused Phase-2 launches and "
+    if (launches != b * PAPER_CYCLES or cache_launches != b * PAPER_CYCLES
+            or arb_launches):
+        fail(f"sweep-208: {launches} fused Phase-2 launches, "
+             f"{cache_launches} cache-phase kernel launches and "
              f"{arb_launches} standalone arbitrations, expected "
-             f"{b * PAPER_CYCLES} and 0")
+             f"{b * PAPER_CYCLES}, {b * PAPER_CYCLES} and 0")
     t0 = time.perf_counter()
     solo = run_sequential(spec, max_cycles=PAPER_CYCLES, chunk=PAPER_CYCLES,
                           device=dev)
@@ -978,7 +1206,8 @@ def phase_sweep(dev, paper_ms: float):
     print(f"sweep-208: {b} scenarios x {PAPER_CYCLES} cycles ({distinct} "
           f"distinct results), scenario 0 == "
           f"BENCH_paper_scale.json raw.stats; fused Phase-2 launches "
-          f"{launches}, standalone arbitration {arb_launches}; "
+          f"{launches}, cache-phase kernel {cache_launches}, standalone "
+          f"arbitration {arb_launches}; "
           f"{wall:.3f} s set-up included: {per:.3f} ms per scenario-cycle "
           f"(solo runs of the same scenarios {solo_per:.3f}, paper-208's "
           f"timed run {paper_ms:.3f} ms a cycle); peak device memory "
@@ -1236,9 +1465,9 @@ def phase_plan(dev) -> int:
 
 
 def phase_build() -> None:
-    """Build both kernels at once: one nvcc per source, started together."""
+    """Build every kernel at once: one nvcc per source, started together."""
     from repro_torch.kernels.build import build
-    names = ("router_arbitrate", "flash_attention")
+    names = ("router_arbitrate", "cache_phase", "flash_attention")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         futures = {n: pool.submit(build, n) for n in names}
@@ -1247,7 +1476,7 @@ def phase_build() -> None:
         print(f"build: {built.path.name} in {built.seconds:.1f} s")
         for line in built.log.strip().splitlines():
             print(f"build: {line}")
-    print(f"build: both kernels in {time.perf_counter() - t0:.1f} s")
+    print(f"build: {len(names)} sources in {time.perf_counter() - t0:.1f} s")
 
 
 def k2_case(shape, dev, seed: int = 0):
@@ -3007,6 +3236,7 @@ def run_phases(dev, card: str, wedge_cpu, dryrun) -> None:
     timed("build", phase_build)
     rec_k1 = timed("kernel", phase_kernel, dev)
     rec_p2 = timed("kernel-phase2", phase_kernel_phase2, dev)
+    rec_c1 = timed("kernel-cache", phase_kernel_cache, dev)
     rec_k2 = timed("kernel-K2", phase_kernel_k2, dev)
     timed("wedge", phase_wedge, dev, wedge_cpu)
     paper_launches, rec_k1["launches"], paper_ms = timed(
@@ -3029,10 +3259,15 @@ def run_phases(dev, card: str, wedge_cpu, dryrun) -> None:
     # the fused kernel's main paths: paper-208's run, the sweep's and the
     # sharded runs' (every rank's)
     rec_p2["launches"] = paper_launches + sweep_launches + sharded_launches
+    # the cache-phase kernel: one beside each fused launch of paper-208's
+    # and the sweep's runs (checked there); the sharded tiles run the
+    # torch phases
+    rec_c1["launches"] = paper_launches + sweep_launches
     print(f"launches: phase2_router {paper_launches} (paper-208) + "
           f"{sweep_launches} (sweep-208) + {sharded_launches} (sharded, all "
           f"ranks) = {rec_p2['launches']}; the plan's run {plan_launches}; "
-          f"router_arbitrate {rec_k1['launches']}")
+          f"router_arbitrate {rec_k1['launches']}; phase1_cache "
+          f"{rec_c1['launches']} (paper-208 and sweep-208)")
     cfg, params, rec_k2["launches"] = timed("lm-prefill", phase_lm_prefill,
                                             dev)
     timed("lm-decode", phase_lm_decode, dev, cfg, params)
@@ -3063,7 +3298,7 @@ def run_phases(dev, card: str, wedge_cpu, dryrun) -> None:
           f"{rec_k2['float32_timing_launches']} in its timing")
 
     print(card)
-    print(json.dumps({"kernels": [rec_k1, rec_p2, rec_k2]}))
+    print(json.dumps({"kernels": [rec_k1, rec_p2, rec_c1, rec_k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

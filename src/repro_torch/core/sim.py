@@ -18,8 +18,9 @@ inside a Python loop.  The counterpart of the JAX package's
   each scenario's cycle is captured once as a CUDA graph
   (:class:`CycleGraph`) and replayed, one launch a scenario-cycle in
   place of ~1,500 eager ones, and writes its L1 and L2 arrays entry by
-  entry where it touches them; elsewhere the pure cycle runs eagerly
-  and its result is written back.
+  entry where it touches them, phases 1a and 1b in one launch of the
+  cache-phase kernel; elsewhere the pure cycle runs eagerly and its
+  result is written back.
 * Termination is checked once per K-cycle chunk (one host sync a chunk);
   the tail then steps cycle by cycle up to ``max_cycles``.  Neither a
   phase nor the monitors sync with the host on every cycle.
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels import router_phase
+from ..kernels import cache_phase, router_phase
 from ..tracing import RECORDER
 from .cache import phase1a, phase1b, stored, unstored
 from .config import ST_DONE, ST_WAIT_DATA, ST_WAIT_DIR, SimConfig
@@ -140,8 +141,10 @@ def cycle_step(s: SimState, cfg: SimConfig, geo: Geometry,
 
     With :data:`repro_torch.tracing.RECORDER` on, the cycle is a
     ``cycle`` span holding ``cast`` (entry; exit), ``phase1a``,
-    ``phase1b``, ``phase2``, ``phase3`` and ``cast`` spans where it runs
-    eagerly or is captured, and a ``replay`` span where it is replayed."""
+    ``phase1b`` (on the card, where the cycle is stepped in place, one
+    ``phase1`` span instead), ``phase2``, ``phase3`` and ``cast`` spans
+    where it runs eagerly or is captured, and a ``replay`` span where it
+    is replayed."""
     with RECORDER.span("cycle"):
         if graph is None:
             return _cycle(s, cfg, geo, ctx)
@@ -153,17 +156,28 @@ def _cycle(s: SimState, cfg: SimConfig, geo: Geometry, ctx: NodeCtx,
            in_place: bool = False) -> SimState:
     """:func:`cycle_step`'s phases.  ``in_place`` steps ``s`` itself and
     returns it: the L1 and L2 arrays stay in their storage dtypes all
-    cycle, the phases reading and writing only the rows they touch
-    (``cache.Stored``), and every other leaf is narrowed back into
-    ``s``'s own tensor (:func:`state.narrow_state`)."""
+    cycle, phases 1a and 1b reading and writing only the entries they
+    touch, and every other leaf is narrowed back into ``s``'s own tensor
+    (:func:`state.narrow_state`), where it is not that tensor already.
+    On a CUDA device phases 1a and 1b are then one launch of the
+    cache-phase kernel (``kernels.cache_phase``, a ``phase1`` span),
+    which writes the working leaves in place; elsewhere they are the
+    torch phases over ``cache.Stored`` arrays."""
     dtypes = leaf_dtypes(cfg, s.trace.shape[-1])
     with RECORDER.span("cast"):
-        w = (stored(widen_state(s, CACHE_LEAVES)) if in_place
-             else widen_state(s))
-    with RECORDER.span("phase1a"):
-        w = phase1a(w, cfg, ctx)
-    with RECORDER.span("phase1b"):
-        w = phase1b(w, cfg, ctx)
+        w = widen_state(s, CACHE_LEAVES) if in_place else widen_state(s)
+    if in_place and s.st.is_cuda:
+        with RECORDER.span("phase1"):
+            w = cache_phase.phase1_cache_cuda(w, cfg)
+    else:
+        if in_place:
+            w = stored(w)
+        with RECORDER.span("phase1a"):
+            w = phase1a(w, cfg, ctx)
+        with RECORDER.span("phase1b"):
+            w = phase1b(w, cfg, ctx)
+        if in_place:
+            w = unstored(w)
     with RECORDER.span("phase2"):
         w, arb = phase2(w, cfg, ctx)
     with RECORDER.span("phase3"):
@@ -172,8 +186,13 @@ def _cycle(s: SimState, cfg: SimConfig, geo: Geometry, ctx: NodeCtx,
         hi, lo = fold_stats(w.stats_hi, w.stats)
         w = w._replace(cycle=w.cycle + 1, stats=lo, stats_hi=hi)
         if in_place:
-            return narrow_state(unstored(w), dtypes, into=s)
+            return narrow_state(w, dtypes, into=s)
         return narrow_state(w, dtypes)
+
+
+#: the launch counters of the hand-written kernels a cycle runs on the
+#: card: K1 (Phase 2) and the cache phases
+KERNEL_LAUNCHES = (router_phase.LAUNCHES, cache_phase.LAUNCHES)
 
 
 class CycleGraph:
@@ -187,14 +206,15 @@ class CycleGraph:
     later step replays the capture.  The graphs of one drive share the
     memory pool ``pool``: they replay one after another on one stream,
     and once a cycle has written the state back nothing in the pool is
-    read again.  A replay adds the K1 launches the capture holds to
-    ``router_phase.LAUNCHES``, and the recorder's counts the capture made
-    (``cache_write_bytes``) to the recorder's counters."""
+    read again.  A replay adds the launches the capture holds of each
+    hand-written kernel to its counter (:data:`KERNEL_LAUNCHES`), and the
+    recorder's counts the capture made (``cache_write_bytes``) to the
+    recorder's counters."""
 
     def __init__(self, stream: torch.cuda.Stream, pool):
         self.stream, self.pool = stream, pool
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.launches = 0
+        self.launches = [0] * len(KERNEL_LAUNCHES)
         self.counts: Dict[str, int] = {}
 
     def step(self, body: Callable[[], object]) -> None:
@@ -208,7 +228,8 @@ class CycleGraph:
         RECORDER.count("graph_replays")
         for k, n in self.counts.items():
             RECORDER.count(k, n)
-        router_phase.LAUNCHES.n += self.launches
+        for c, n in zip(KERNEL_LAUNCHES, self.launches):
+            c.n += n
 
     def _capture(self, body: Callable[[], object]) -> None:
         here = torch.cuda.current_stream(self.stream.device)
@@ -216,7 +237,7 @@ class CycleGraph:
         with torch.cuda.stream(self.stream):
             body()
             graph = torch.cuda.CUDAGraph()
-            before = router_phase.LAUNCHES.n
+            before = [c.n for c in KERNEL_LAUNCHES]
             with RECORDER.tally() as self.counts:
                 graph.capture_begin(pool=self.pool)
                 try:
@@ -225,8 +246,9 @@ class CycleGraph:
                     graph.capture_end()
         here.wait_stream(self.stream)
         # captured, not launched: the replays count them
-        self.launches = router_phase.LAUNCHES.n - before
-        router_phase.LAUNCHES.n = before
+        self.launches = [c.n - b for c, b in zip(KERNEL_LAUNCHES, before)]
+        for c, b in zip(KERNEL_LAUNCHES, before):
+            c.n = b
         self.graph = graph
         RECORDER.count("graph_captures")
 

@@ -5,8 +5,8 @@ Two kinds of counter live here:
 
 * :class:`LaunchCount` — always on: a kernel's wrapper adds one where it
   launches its kernel (``kernels.router_phase.LAUNCHES``,
-  ``kernels.flash_attention.LAUNCHES``), so a run can show that it went
-  through the kernel.
+  ``kernels.cache_phase.LAUNCHES``, ``kernels.flash_attention.LAUNCHES``),
+  so a run can show that it went through the kernel.
 * :data:`RECORDER`'s counters — switched: :meth:`Recorder.count` adds to
   a named integer only while the recorder is on.
 
@@ -26,6 +26,8 @@ every scenario) holds each scenario's ``cycle`` and the ``monitor``
 (termination predicate and progress monitors); ``cycle`` holds ``cast``
 (the state widened on entry; the statistics folded and the state
 narrowed on exit), ``phase1a``, ``phase1b``, ``phase2`` and ``phase3``
+(on the card, where the cycle is stepped in place, ``phase1``, the
+cache-phase kernel's launch, in place of ``phase1a`` and ``phase1b``)
 where the cycle runs eagerly or is captured as a CUDA graph, and
 ``replay`` where the captured graph is replayed; ``check`` is each
 termination check read back to the host.  The counter ``host_syncs``

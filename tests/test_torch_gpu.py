@@ -696,6 +696,7 @@ def test_graphed_drive_equals_eager_steps(cuda, name):
     assert d.counters["graph_captures"] == b
     assert d.counters["graph_replays"] == b * (d.steps - 1)
     assert d.launches == b * d.steps and len(d.ptrs) == b * d.steps
+    assert d.cache_launches == b * d.steps
     assert d.counters["cache_write_bytes"] == b * d.steps * \
         de.in_place_write_bytes(cfg, d.state.trace.shape[-1])
     assert "cache_cast_bytes" not in d.counters
@@ -703,6 +704,63 @@ def test_graphed_drive_equals_eager_steps(cuda, name):
     assert all(p == p[:1] * len(p) for p in per)
     assert [x.data_ptr() for x in d.state] == d.before
     assert d.shared == []
+
+
+#: (config, app, refs, cycles): real mid-run states at 32x32 for the
+#: cache-phase kernel, one every CACHE_PHASE_EVERY cycles: the benchmark's
+#: paper-208 geometry under random traffic, Table 4 row 1 under matmul,
+#: pending depth 1, migration off, migration threshold 1, a centralized
+#: directory and a flat one spread over the nodes
+CACHE_PHASE_CASES = {
+    "paper-random": (paper_cfg(32), "random", 64, 240),
+    "table4-row1-matmul": (paper_cfg(32, cache=TABLE4_ROW1), "matmul", 256,
+                           240),
+    "pc-depth-1": (paper_cfg(32, pc_depth=1), "random", 64, 240),
+    "migration-off": (paper_cfg(32, migration_enabled=False), "random", 64,
+                      240),
+    "threshold-1": (paper_cfg(32, migrate_threshold=1), "random", 64, 240),
+    "centralized": (SimConfig(rows=32, cols=32, state_dtype_policy="packed"),
+                    "random", 64, 240),
+    "flat-wide": (SimConfig(rows=32, cols=32, centralized_directory=False),
+                  "random", 64, 240),
+}
+CACHE_PHASE_EVERY = 12
+
+
+@pytest.mark.parametrize("name", list(CACHE_PHASE_CASES))
+def test_cache_phase_kernel_equals_the_torch_phases(cuda, name):
+    """One launch of the cache-phase kernel on a mid-run state, widened
+    as the in-place cycle widens it, equals ``phase1b(phase1a(...))`` on
+    the same state widened whole: every leaf (the send queue's and the
+    directory's sink slots included; the L1 and L2 arrays in their
+    storage dtypes) and every statistic."""
+    from repro_torch.core import cache
+    from repro_torch.core.state import (CACHE_LEAVES, SimState,
+                                        make_node_ctx, widen_state)
+    from repro_torch.core.workloads import resolve_trace
+    from repro_torch.kernels import cache_phase
+    cfg, app, refs, cycles = CACHE_PHASE_CASES[name]
+    vs = sim.VectorSim(cfg, resolve_trace(cfg, app, refs, 3), device=cuda)
+    ctx = make_node_ctx(cfg, cuda)
+    fired = torch.zeros_like(vs.state.stats)
+    for c in range(1, cycles + 1):
+        vs.step()
+        if c % CACHE_PHASE_EVERY:
+            continue
+        s = vs.state
+        with torch.inference_mode():
+            want = cache.phase1b(cache.phase1a(widen_state(s), cfg, ctx),
+                                 cfg, ctx)
+            w = SimState(*(x.clone() for x in widen_state(s, CACHE_LEAVES)))
+            before = cache_phase.LAUNCHES.n
+            assert cache_phase.phase1_cache_cuda(w, cfg) is w
+        assert cache_phase.LAUNCHES.n == before + 1
+        for k, got, ref in zip(SimState._fields, w, want):
+            if k in CACHE_LEAVES:
+                assert got.dtype == getattr(s, k).dtype, k
+            assert torch.equal(got.to(torch.int32), ref), (c, k)
+        fired += want.stats - s.stats
+    assert int(fired.sum()) > 0
 
 
 def test_graphed_run_holds_no_more_memory_than_eager_steps(cuda,

@@ -14,16 +14,13 @@ from repro_torch.core.config import ST_WAIT_DATA, ST_WAIT_DIR, SimConfig
 from repro_torch.core.state import (STAT_NAMES, SimState, init_state,
                                     leaf_dtypes)
 from repro_torch.core.sweep import ScenarioSpec, SweepSpec
-from repro_torch.kernels import router_phase
+from repro_torch.kernels import cache_phase, router_phase
 
 PROGRESS = [k for k in STAT_NAMES if k not in ("hops", "deflections")]
 #: the writes a cycle makes into each L1 and L2 array, whatever the
-#: traffic: ``install_l2`` twice (tag, mig, last, streak), phase 1a's
-#: migration trigger (last, streak, mig) and migration acks (tag, mig
-#: twice, streak), one LRU touch of each level in phase 1a and in phase
-#: 1b, ``install_l1`` twice (tag, owner) and phase 1b's second L1 touch
-CACHE_WRITES = {"l1_tag": 2, "l1_lru": 3, "l1_owner": 2, "l2_tag": 3,
-                "l2_lru": 2, "l2_mig": 5, "l2_last": 3, "l2_streak": 4}
+#: traffic: the cache-phase kernel's table of the torch phases' write
+#: sites, which the CPU tests hold ``cache.put``'s counts against
+CACHE_WRITES = cache_phase.WRITE_SITES
 DIAG_KEYS = ("circulating_flits", "wait_dir_nodes", "wait_data_nodes",
              "stalled_queues", "flits_to_node0")
 
@@ -83,6 +80,7 @@ class Driven(NamedTuple):
     counters: Dict[str, int]
     steps: int             # cycles the drive stepped
     launches: int          # K1 launches the drive counted
+    cache_launches: int    # cache-phase kernel launches it counted
     want: List[Tuple[Dict, Tuple, SimState]]  # :func:`eager`, a scenario
 
     def records(self) -> List[Tuple[int, int, List[int]]]:
@@ -158,6 +156,7 @@ def drive(cfg: SimConfig, scenarios: Sequence[Tuple], cycles: int,
     tracing.RECORDER.drain()
     tracing.RECORDER.start()
     launches = router_phase.LAUNCHES.n
+    cache_launches = cache_phase.LAUNCHES.n
     saved, sim.cycle_step = sim.cycle_step, step
     try:
         out, aux = sim._drive(s, cfg, cycles, chunk)
@@ -165,9 +164,10 @@ def drive(cfg: SimConfig, scenarios: Sequence[Tuple], cycles: int,
         sim.cycle_step = saved
         tracing.RECORDER.stop()
     launches = router_phase.LAUNCHES.n - launches
+    cache_launches = cache_phase.LAUNCHES.n - cache_launches
     spans, counters = tracing.RECORDER.drain()
     steps = sum(sp.name == "step" for sp in spans)
     want = [eager(sc.resolve_cfg(cfg), traces[b], steps, device)
             for b, sc in enumerate(spec.scenarios)]
     return Driven(s, before, out, aux, ptrs, shared, counters, steps,
-                  launches, want)
+                  launches, cache_launches, want)
