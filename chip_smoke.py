@@ -858,9 +858,10 @@ def phase_kernel_cache(dev):
     mid-run states, timed beside them; then K1 timed after each of them
     in the graphed cycle.  Returns the kernel's record."""
     import torch
-    from repro_torch.core.cache import phase1a, phase1b, stored, unstored
+    from repro_torch.core.cache import phase1a, phase1b
     from repro_torch.core.sim import VectorSim
-    from repro_torch.core.state import CACHE_LEAVES, SimState, widen_state
+    from repro_torch.core.state import (CACHE_LEAVES, SimState, narrow_state,
+                                        widen_state)
     from repro_torch.core.workloads import random_trace
     from repro_torch.kernels.cache_phase import LAUNCHES, phase1_cache_cuda
 
@@ -943,9 +944,9 @@ def phase_kernel_cache(dev):
           f"kernel / plain {ms / plain_ms:.4f}")
 
     # K1 in the graphed cycle after the kernel, after the kernel and a
-    # write that empties the L2, and after the torch phases (over
-    # cache.Stored, the cycle the graph captured before the kernel): all
-    # three runs' statistics must agree
+    # write that empties the L2, and after the pure torch phases narrowed
+    # back into the cycle's working state: all three runs' statistics
+    # must agree
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
 
     def flushed(w, cfg):
@@ -954,7 +955,9 @@ def phase_kernel_cache(dev):
         return w
 
     def torch_phases(w, cfg):
-        return unstored(phase1b(phase1a(stored(w), cfg, ctx), cfg, ctx))
+        dtypes = {k: x.dtype for k, x in zip(SimState._fields, w)}
+        out = phase1b(phase1a(widen_state(w), cfg, ctx), cfg, ctx)
+        return narrow_state(out, dtypes, into=w)
 
     k1 = {}
     for name, fn in (("kernel", None), ("kernel+flush", flushed),

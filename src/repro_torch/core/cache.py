@@ -5,18 +5,11 @@ S1..S14 of the serial golden model as masked dense tensor ops, leaf for
 leaf the same.  Directory accesses are always performed by the tag's
 home node, which makes the ``home`` directory layout fully local.
 
-Called on a state of tensors (the pure cycle, and every caller but the
-driver's in-place cycle), every update is out of place: a phase returns
-new tensors and never writes into its input state, as in the JAX code.
-The in-place cycle (``sim.cycle_step`` with a graph) hands the phases the
-L1 and L2 arrays as :class:`Stored` leaves instead: reads gather the
-rows they need, and :func:`put` writes each masked row update straight
-into the stored array, in the order the pure code makes them, so every
-read sees what the pure code's reads see.  No operation then touches a
-whole L1 or L2 array.  Masked-off rows of a gather or scatter are routed
-to explicit sink slots (the directory's last entry, the send queue's
-slot ``send_queue``) or clipped, because a torch index out of range
-raises where JAX clamps.
+Every update is out of place: a phase returns new tensors and never
+writes into its input state, as in the JAX code.  Masked-off rows of a
+gather or scatter are routed to explicit sink slots (the directory's
+last entry, the send queue's slot ``send_queue``) or clipped, because a
+torch index out of range raises where JAX clamps.
 """
 from __future__ import annotations
 
@@ -48,9 +41,7 @@ from .config import (
     ST_WAIT_MEM,
     SimConfig,
 )
-from ..tracing import RECORDER
 from .state import (
-    CACHE_LEAVES,
     I32,
     NodeCtx,
     P_OSRC,
@@ -60,7 +51,6 @@ from .state import (
     P_VALID,
     SimState,
     bump_all,
-    saturate,
 )
 
 BIG = 1 << 30
@@ -120,55 +110,6 @@ def set_where(t: torch.Tensor, idx, mask: torch.Tensor,
     out = t.clone()
     out[idx] = where(mask, val, t[idx])
     return out
-
-
-class Stored:
-    """An L1 or L2 array of a cycle stepped in place: the state's own
-    tensor ``t``, in its storage dtype, of the leaf named ``name``.
-    Indexing gathers the entries asked for and widens them to int32;
-    :func:`put` writes entries in place.  Nothing reads or writes the
-    whole array."""
-
-    __slots__ = ("t", "name")
-
-    def __init__(self, t: torch.Tensor, name: str):
-        self.t, self.name = t, name
-
-    def __getitem__(self, idx) -> torch.Tensor:
-        x = self.t[idx]
-        return x if x.dtype == I32 else x.to(I32)
-
-
-def stored(s: SimState) -> SimState:
-    """``s`` with its cache leaves (``state.CACHE_LEAVES``) as
-    :class:`Stored` arrays, for the phases to write in place."""
-    return s._replace(**{k: Stored(getattr(s, k), k) for k in CACHE_LEAVES})
-
-
-def unstored(s: SimState) -> SimState:
-    """``s`` with its :class:`Stored` cache leaves back as their tensors."""
-    return s._replace(**{k: getattr(s, k).t for k in CACHE_LEAVES})
-
-
-def put(t: Union[torch.Tensor, Stored], idx, mask: torch.Tensor,
-        val: Value) -> Union[torch.Tensor, Stored]:
-    """:func:`set_where` for an L1 or L2 array: out of place for a
-    tensor, in place for a :class:`Stored` array, where the entries at
-    ``idx`` take ``val`` where ``mask`` holds and keep their value where
-    it does not, narrowed to the storage dtype as they are written
-    (``l2_streak`` saturates: ``state.saturate``).  Counts the bytes
-    written as ``cache_write_bytes``: the whole copy out of place, the
-    entries at ``idx`` in place."""
-    if not isinstance(t, Stored):
-        if RECORDER.counting:
-            RECORDER.count("cache_write_bytes", t.numel() * t.element_size())
-        return set_where(t, idx, mask, val)
-    dt = t.t.dtype
-    new = saturate(t.name, where(mask, val, t.t[idx]), dt).to(dt)
-    t.t[idx] = new
-    if RECORDER.counting:
-        RECORDER.count("cache_write_bytes", new.numel() * new.element_size())
-    return t
 
 
 class Desc(NamedTuple):
@@ -307,10 +248,10 @@ def install_l2(s: SimState, cfg: SimConfig, ctx: NodeCtx, mask: torch.Tensor,
 
     # write the new block
     at = (node, si, vic_way)
-    l2_tag = put(s.l2_tag, at, do, tag2)
-    l2_mig = put(s.l2_mig, at, do, 0)
-    l2_last = put(s.l2_last, at, do, -1)
-    l2_streak = put(s.l2_streak, at, do, 0)
+    l2_tag = set_where(s.l2_tag, at, do, tag2)
+    l2_mig = set_where(s.l2_mig, at, do, 0)
+    l2_last = set_where(s.l2_last, at, do, -1)
+    l2_streak = set_where(s.l2_streak, at, do, 0)
 
     # new-owner directory update
     homen = dir_home_v(cfg, tag2, s.knob_central)
@@ -373,8 +314,8 @@ def install_l1(s: SimState, cfg: SimConfig, ctx: NodeCtx, mask: torch.Tensor,
     way = where(present, hw, vic_way)
     w = present | need
     at = (node, si, way)
-    l1_tag = put(s.l1_tag, at, w, tag1)
-    l1_owner = put(s.l1_owner, at, w, owner)
+    l1_tag = set_where(s.l1_tag, at, w, tag1)
+    l1_owner = set_where(s.l1_owner, at, w, owner)
     return L1Install(l1_tag, l1_owner, si, way, w, desc_wb,
                      wb_remote.sum(dtype=I32), n_wb_miss)
 
@@ -560,10 +501,10 @@ def phase1a(s: SimState, cfg: SimConfig, ctx: NodeCtx) -> SimState:
               & (l2_mig[hit_at] == 0))
     streak_new = where(l2_last[hit_at] == osrc,
                        l2_streak[hit_at] + 1, 1)
-    l2_last = put(l2_last, hit_at, mig_ok, osrc)
-    l2_streak = put(l2_streak, hit_at, mig_ok, streak_new)
+    l2_last = set_where(l2_last, hit_at, mig_ok, osrc)
+    l2_streak = set_where(l2_streak, hit_at, mig_ok, streak_new)
     trig = mig_ok & (streak_new >= s.knob_mig_thr)
-    l2_mig = put(l2_mig, hit_at, trig, 1)
+    l2_mig = set_where(l2_mig, hit_at, trig, 1)
     d1 = merge_desc(d1, Desc(trig, MSG_B2, osrc, nid, tag))
     bumps.append(("migrations", trig))
 
@@ -646,16 +587,16 @@ def phase1a(s: SimState, cfg: SimConfig, ctx: NodeCtx) -> SimState:
 
     # ---- MIG_ACK (S13) ----
     ak_succ = is_ack & (osrc >= 0) & l2hit & (l2_mig[hit_at] > 0)
-    l2_tag = put(l2_tag, hit_at, ak_succ, -1)
-    l2_mig = put(l2_mig, hit_at, ak_succ, 0)
+    l2_tag = set_where(l2_tag, hit_at, ak_succ, -1)
+    l2_mig = set_where(l2_mig, hit_at, ak_succ, 0)
     ak_ins = is_ack & (osrc >= 0)
     p = fwd_ptr % cfg.fwd_entries
     fwd_tag = set_where(fwd_tag, (node, p), ak_ins, tag)
     fwd_dst = set_where(fwd_dst, (node, p), ak_ins, osrc)
     fwd_ptr = where(ak_ins, p + 1, fwd_ptr)
     ak_fail = is_ack & (osrc < 0) & l2hit
-    l2_mig = put(l2_mig, hit_at, ak_fail, 0)
-    l2_streak = put(l2_streak, hit_at, ak_fail, 0)
+    l2_mig = set_where(l2_mig, hit_at, ak_fail, 0)
+    l2_streak = set_where(l2_streak, hit_at, ak_fail, 0)
 
     # ---- directory scatters (disjoint per entry — one handler per node,
     # same entry ⇒ same home ⇒ same node) ----
@@ -673,9 +614,9 @@ def phase1a(s: SimState, cfg: SimConfig, ctx: NodeCtx) -> SimState:
     clock = s.lru_clock + (l2touch | l1touch).to(I32)
     tsi = where(ins2.did, ins2.touch_set, si)
     twy = where(ins2.did, ins2.touch_way, hw)
-    l2_lru = put(s.l2_lru, (node, tsi, twy), l2touch, clock)
-    l1_lru = put(s.l1_lru, (node, ins1.touch_set, ins1.touch_way),
-                 l1touch, clock)
+    l2_lru = set_where(s.l2_lru, (node, tsi, twy), l2touch, clock)
+    l1_lru = set_where(s.l1_lru, (node, ins1.touch_set, ins1.touch_way),
+                       l1touch, clock)
 
     s = s._replace(
         st=st, ctr=ctr, install_mode=imode, lru_clock=clock,
@@ -835,10 +776,10 @@ def phase1b(s: SimState, cfg: SimConfig, ctx: NodeCtx) -> SimState:
     clock = s.lru_clock + (t2_l1 | t2_l2).to(I32)
     t2_l1_at = (node, where(l1hit, si1, hsi),
                 where(l1hit, hw1, hhw))
-    l1_lru = put(s.l1_lru, t2_l1_at, t2_l1, clock)
+    l1_lru = set_where(s.l1_lru, t2_l1_at, t2_l1, clock)
     t2_l2_at = (node, where(l2f_touch, si2f, ins2.touch_set),
                 where(l2f_touch, hw2f, ins2.touch_way))
-    l2_lru = put(s.l2_lru, t2_l2_at, t2_l2, clock)
+    l2_lru = set_where(s.l2_lru, t2_l2_at, t2_l2, clock)
 
     # ---- install_l1 (touch site 3): L2_WAIT refill, WAIT_MEM installs ----
     il1_mask = l2w_fire | wm_fire
@@ -853,8 +794,8 @@ def phase1b(s: SimState, cfg: SimConfig, ctx: NodeCtx) -> SimState:
     bumps.append(("wb_sent", ins1.n_wb_sent))
     bumps.append(("wb_miss", ins1.n_wb_miss))
     clock = clock + ins1.touch.to(I32)
-    l1_lru = put(l1_lru, (node, ins1.touch_set, ins1.touch_way),
-                 ins1.touch, clock)
+    l1_lru = set_where(l1_lru, (node, ins1.touch_set, ins1.touch_way),
+                       ins1.touch, clock)
     st = where(il1_mask, ST_IDLE, st)
 
     s = s._replace(

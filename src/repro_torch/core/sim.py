@@ -17,8 +17,7 @@ inside a Python loop.  The counterpart of the JAX package's
   narrowed straight into the scenario's own tensors.  On a CUDA device
   each scenario's cycle is captured once as a CUDA graph
   (:class:`CycleGraph`) and replayed, one launch a scenario-cycle in
-  place of ~1,500 eager ones, and writes its L1 and L2 arrays entry by
-  entry where it touches them, phases 1a and 1b in one launch of the
+  place of ~1,500 eager ones, phases 1a and 1b in one launch of the
   cache-phase kernel; elsewhere the pure cycle runs eagerly and its
   result is written back.
 * Termination is checked once per K-cycle chunk (one host sync a chunk);
@@ -46,7 +45,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import cache_phase, router_phase
 from ..tracing import RECORDER
-from .cache import phase1a, phase1b, stored, unstored
+from .cache import phase1a, phase1b
 from .config import ST_DONE, ST_WAIT_DATA, ST_WAIT_DIR, SimConfig
 from .noc import phase2, phase3
 from .state import (CACHE_LEAVES, F_DST, F_VALID, I32, P_VALID, R_NFL,
@@ -155,29 +154,22 @@ def cycle_step(s: SimState, cfg: SimConfig, geo: Geometry,
 def _cycle(s: SimState, cfg: SimConfig, geo: Geometry, ctx: NodeCtx,
            in_place: bool = False) -> SimState:
     """:func:`cycle_step`'s phases.  ``in_place`` steps ``s`` itself and
-    returns it: the L1 and L2 arrays stay in their storage dtypes all
-    cycle, phases 1a and 1b reading and writing only the entries they
-    touch, and every other leaf is narrowed back into ``s``'s own tensor
-    (:func:`state.narrow_state`), where it is not that tensor already.
-    On a CUDA device phases 1a and 1b are then one launch of the
-    cache-phase kernel (``kernels.cache_phase``, a ``phase1`` span),
-    which writes the working leaves in place; elsewhere they are the
-    torch phases over ``cache.Stored`` arrays."""
+    returns it: phases 1a and 1b are one launch of the cache-phase kernel
+    (``kernels.cache_phase``, a ``phase1`` span), which writes the L1 and
+    L2 arrays in place in their storage dtypes, and every other leaf is
+    narrowed back into ``s``'s own tensor (:func:`state.narrow_state`).
+    The kernel runs only on the card; elsewhere its wrapper raises."""
     dtypes = leaf_dtypes(cfg, s.trace.shape[-1])
     with RECORDER.span("cast"):
         w = widen_state(s, CACHE_LEAVES) if in_place else widen_state(s)
-    if in_place and s.st.is_cuda:
+    if in_place:
         with RECORDER.span("phase1"):
             w = cache_phase.phase1_cache_cuda(w, cfg)
     else:
-        if in_place:
-            w = stored(w)
         with RECORDER.span("phase1a"):
             w = phase1a(w, cfg, ctx)
         with RECORDER.span("phase1b"):
             w = phase1b(w, cfg, ctx)
-        if in_place:
-            w = unstored(w)
     with RECORDER.span("phase2"):
         w, arb = phase2(w, cfg, ctx)
     with RECORDER.span("phase3"):
@@ -207,15 +199,12 @@ class CycleGraph:
     memory pool ``pool``: they replay one after another on one stream,
     and once a cycle has written the state back nothing in the pool is
     read again.  A replay adds the launches the capture holds of each
-    hand-written kernel to its counter (:data:`KERNEL_LAUNCHES`), and the
-    recorder's counts the capture made (``cache_write_bytes``) to the
-    recorder's counters."""
+    hand-written kernel to its counter (:data:`KERNEL_LAUNCHES`)."""
 
     def __init__(self, stream: torch.cuda.Stream, pool):
         self.stream, self.pool = stream, pool
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches = [0] * len(KERNEL_LAUNCHES)
-        self.counts: Dict[str, int] = {}
 
     def step(self, body: Callable[[], object]) -> None:
         """Step the cycle that ``body`` computes in place: eagerly and
@@ -226,8 +215,6 @@ class CycleGraph:
         with RECORDER.span("replay"):
             self.graph.replay()
         RECORDER.count("graph_replays")
-        for k, n in self.counts.items():
-            RECORDER.count(k, n)
         for c, n in zip(KERNEL_LAUNCHES, self.launches):
             c.n += n
 
@@ -238,12 +225,11 @@ class CycleGraph:
             body()
             graph = torch.cuda.CUDAGraph()
             before = [c.n for c in KERNEL_LAUNCHES]
-            with RECORDER.tally() as self.counts:
-                graph.capture_begin(pool=self.pool)
-                try:
-                    body()
-                finally:
-                    graph.capture_end()
+            graph.capture_begin(pool=self.pool)
+            try:
+                body()
+            finally:
+                graph.capture_end()
         here.wait_stream(self.stream)
         # captured, not launched: the replays count them
         self.launches = [c.n - b for c, b in zip(KERNEL_LAUNCHES, before)]

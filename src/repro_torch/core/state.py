@@ -12,8 +12,8 @@ smallest of int8/int16/int32 that holds its validated value bounds
 (:func:`leaf_dtypes`).  All phase code computes in int32 either way —
 :func:`widen_state` / :func:`narrow_state` cast at the cycle boundary,
 but a cycle stepped in place keeps the L1 and L2 arrays
-(:data:`CACHE_LEAVES`) narrow and widens only the entries it reads
-(``cache.Stored``).
+(:data:`CACHE_LEAVES`) narrow: the cache-phase kernel reads and writes
+them in their storage dtypes.
 
 Statistics are carried as a base-2**30 (hi, lo) int32 pair (``stats_hi``,
 ``stats``), as in the JAX package: the low word is folded into the high
@@ -38,7 +38,6 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..tracing import RECORDER
 from .config import NUM_MSG_TYPES, NUM_PORTS, SimConfig
 
 I32 = torch.int32
@@ -396,17 +395,9 @@ def leaf_dtypes(cfg: SimConfig, trace_len: int) -> Dict[str, torch.dtype]:
 
 
 #: the L1 and L2 arrays, (N, sets, ways) each: a cycle stepped in place
-#: keeps them in their storage dtypes and writes only the rows it
-#: touches (``cache.Stored``)
+#: keeps them in their storage dtypes (``kernels.cache_phase``)
 CACHE_LEAVES = ("l1_tag", "l1_lru", "l1_owner", "l2_tag", "l2_lru",
                 "l2_mig", "l2_last", "l2_streak")
-
-
-def _cast_whole(k: str, v: torch.Tensor, itemsize: int) -> None:
-    """Count a whole-leaf cast or copy that writes ``itemsize`` bytes an
-    entry, where ``k`` is a cache leaf (``cache_cast_bytes``)."""
-    if RECORDER.counting and k in CACHE_LEAVES:
-        RECORDER.count("cache_cast_bytes", v.numel() * itemsize)
 
 
 def widen_state(s: SimState, keep: Tuple[str, ...] = ()) -> SimState:
@@ -419,7 +410,6 @@ def widen_state(s: SimState, keep: Tuple[str, ...] = ()) -> SimState:
     def up(k, v):
         if k == "trace" or k in keep or v.dtype == I32:
             return v
-        _cast_whole(k, v, 4)
         return v.to(I32)
     return SimState(*(up(k, v) for k, v in zip(SimState._fields, s)))
 
@@ -453,7 +443,6 @@ def narrow_state(s: SimState, dtypes: Dict[str, torch.dtype],
         dt = dtypes[k]
         if v is dst or (dst is None and v.dtype == dt):
             return v
-        _cast_whole(k, v, dt.itemsize)
         v = saturate(k, v, dt)
         return v.to(dt) if dst is None else dst.copy_(v)
     dsts = into if into is not None else (None,) * len(s)

@@ -24,20 +24,10 @@ import torch
 from ..core.config import SimConfig
 from ..core.state import (CACHE_LEAVES, NUM_P, NUM_Q, NUM_STATS, SimState,
                           dir_shape)
-from ..tracing import RECORDER
 from .build import LaunchCount, build
 
 #: launches of the cache-phase kernel in this process
 LAUNCHES = LaunchCount()
-
-#: the writes one launch makes into each L1 and L2 array, one entry a node
-#: each, whatever the traffic: ``install_l2`` in phase 1a and in phase 1b
-#: (tag, mig, last, streak), phase 1a's migration trigger (last, streak,
-#: mig) and migration acks (tag, mig twice, streak), one LRU touch of each
-#: level in 1a and in 1b, ``install_l1`` in 1a and in 1b (tag, owner) and
-#: phase 1b's second L1 touch: the write sites of the torch phases
-WRITE_SITES = {"l1_tag": 2, "l1_lru": 3, "l1_owner": 2, "l2_tag": 3,
-               "l2_lru": 2, "l2_mig": 5, "l2_last": 3, "l2_streak": 4}
 
 #: the int32 leaves the kernel reads and writes in place, in the argument
 #: struct's order, then the ones it only reads
@@ -136,17 +126,6 @@ def _pack(w: SimState, cfg: SimConfig) -> _Phase1Args:
         *(getattr(w, k).element_size() for k in _STORED))
 
 
-def write_bytes(w: SimState) -> int:
-    """The bytes one launch's L1 and L2 write sites cover: one entry a
-    node at each site (:data:`WRITE_SITES`), in the array's storage
-    dtype, the reckoning ``cache.put`` counts in place, whether or not a
-    node's write is masked off.  A fixed reckoning from the state's
-    shapes and dtypes, the same every launch: not a count of the bytes
-    the kernel writes."""
-    return sum(k * w.st.shape[0] * getattr(w, name).element_size()
-               for name, k in WRITE_SITES.items())
-
-
 def phase1_cache_cuda(w: SimState, cfg: SimConfig) -> SimState:
     """Phases 1a and 1b of one cycle for every node, in one launch on the
     current stream: ``phase1b(phase1a(w, cfg, ctx), cfg, ctx)`` computed
@@ -156,13 +135,11 @@ def phase1_cache_cuda(w: SimState, cfg: SimConfig) -> SimState:
     but for the L1 and L2 arrays and ``trace``, which keep their storage
     dtypes (``state.widen_state(s, state.CACHE_LEAVES)``); see
     :func:`check_phase1_inputs`.  The kernel writes the phase's results
-    into ``w``'s own tensors, the cache arrays narrowed as ``cache.put``
-    writes them, and adds the phase's statistics to ``w.stats``.  The
-    knobs are read on the card, so nothing syncs with the host.  Counts
-    the launch in :data:`LAUNCHES` and, with the recorder on, the bytes
-    the write sites cover (:func:`write_bytes`) as
-    ``cache_write_bytes``.  Raises on any other input and when the
-    launch fails.
+    into ``w``'s own tensors, the cache arrays narrowed as
+    ``state.narrow_state`` narrows them, and adds the phase's statistics
+    to ``w.stats``.  The knobs are read on the card, so nothing syncs
+    with the host.  Counts the launch in :data:`LAUNCHES`.  Raises on any
+    other input and when the launch fails.
     """
     dev = w.st.device
     if dev.type != "cuda":
@@ -175,6 +152,4 @@ def phase1_cache_cuda(w: SimState, cfg: SimConfig) -> SimState:
     if err != 0:
         raise RuntimeError(f"phase1_cache launch failed: CUDA error {err}")
     LAUNCHES.n += 1
-    if RECORDER.counting:
-        RECORDER.count("cache_write_bytes", write_bytes(w))
     return w

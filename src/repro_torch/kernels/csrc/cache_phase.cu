@@ -32,7 +32,8 @@
 // handler and then its phase 1b FSM, statement for statement in the order
 // the torch phases apply them, reading every L1/L2 entry in its storage
 // dtype (1, 2 or 4 bytes, read from the arguments) and writing it back
-// narrowed as cache.put does (l2_streak saturating at int16's maximum).
+// narrowed as state.narrow_state does (l2_streak saturating at int16's
+// maximum).
 // Nothing is shared between nodes: a handler reads and writes only its own
 // node's rows, and a directory entry only at its home (the flat layout's
 // entries are each touched by one node a cycle: same entry, same home,

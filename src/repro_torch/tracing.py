@@ -35,20 +35,9 @@ counts the driver's reads of a device value to the host,
 ``graph_captures`` the scenarios' cycles captured as CUDA graphs (one a
 scenario a drive on a CUDA device) and ``graph_replays`` the
 scenario-cycles replayed from them.
-
-Two counters measure what a cycle does to the L1 and L2 arrays (the
-eight cache leaves, ``state.CACHE_LEAVES``): ``cache_write_bytes``, the
-bytes the cycle's writes into them cover (a whole array where the pure
-cycle writes a copy, the rows written where the cycle steps in place;
-``core/cache.py``), and ``cache_cast_bytes``, the bytes written by
-whole-array casts and copies at the cycle's boundaries (``state.py``'s
-``widen_state`` and ``narrow_state``).  A CUDA graph's capture keeps
-the figures counted inside it (:meth:`Recorder.tally`) and each replay
-adds them.
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -147,7 +136,6 @@ class Recorder:
         self._stack: List[int] = []
         self._next = 0
         self._epoch = 0
-        self._tally: Optional[Dict[str, int]] = None
 
     def start(self) -> None:
         """Switch on."""
@@ -173,30 +161,10 @@ class Recorder:
             return _OFF
         return _Open(self, name)
 
-    @property
-    def counting(self) -> bool:
-        """Does :meth:`count` keep what it is given?  A caller whose
-        figure costs work to reckon asks first."""
-        return self.on or self._tally is not None
-
     def count(self, name: str, n: int = 1) -> None:
-        """Add ``n`` to the counter ``name`` while the recorder is on, or
-        to the open :meth:`tally` instead."""
-        if self._tally is not None:
-            self._tally[name] = self._tally.get(name, 0) + n
-        elif self.on:
+        """Add ``n`` to the counter ``name`` while the recorder is on."""
+        if self.on:
             self.counters[name] = self.counters.get(name, 0) + n
-
-    @contextlib.contextmanager
-    def tally(self):
-        """Yield a dict that takes the counts made inside the block, on or
-        off, in place of the counters: what a CUDA graph's capture counts,
-        which each replay adds with :meth:`count`."""
-        saved, self._tally = self._tally, {}
-        try:
-            yield self._tally
-        finally:
-            self._tally = saved
 
     def drain(self) -> Tuple[List[Span], Dict[str, int]]:
         """The closed spans, in the order they closed, and the counters;

@@ -5,20 +5,19 @@ against the torch phases there).  Here, on the CPU:
 
 * the kernel's per-node code, compiled for the host with the system's
   C++ compiler over a small header that stands in for CUDA's (each node
-  in turn, as the kernel's threads would run it), is held leaf for leaf
-  and in the statistics against ``phase1b(phase1a(...))`` on mid-run
-  states where every handler fires;
+  in turn, as the kernel's threads would run it;
+  ``tests/torch_cache_host.py``), is held leaf for leaf and in the
+  statistics against ``phase1b(phase1a(...))`` on mid-run states where
+  every handler fires;
 * the wrapper refuses CPU tensors and what the kernel does not take;
 * the ctypes structure, the statistics, message types, states and
   tables copied into the source match the package's;
-* the in-place cycle on the CPU still runs the torch phases, and the
-  bytes the wrapper counts as ``cache_write_bytes`` are what
-  ``cache.put`` counts there.
+* the in-place cycle calls the kernel's wrapper once a cycle, in place
+  of the torch phases, and on the CPU it raises without the host build.
 """
+import collections
 import ctypes
 import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -30,38 +29,11 @@ from repro_torch.core.config import CacheConfig, SimConfig
 from repro_torch.core.state import (CACHE_LEAVES, STAT_NAMES, SimState,
                                     geometry_to, init_state, make_geometry,
                                     make_node_ctx, widen_state)
-from repro_torch.kernels import build, cache_phase
+from repro_torch.kernels import cache_phase
 
-SOURCE = (build.CSRC / "cache_phase.cu").read_text()
+import torch_cache_host as ch
 
-#: what the host build includes in place of ``cuda_runtime.h``
-HOST_SHIM = r"""
-#pragma once
-#include <stdint.h>
-#include <algorithm>
-using std::min;
-using std::max;
-#define __device__
-#define __forceinline__ inline
-#define __constant__
-"""
-
-#: run in place of the kernel and its launch: every node in turn, its
-#: statistic increments added as the kernel's CTAs add them
-HOST_DRIVER = r"""
-void host_all(const Phase1Args& a) {
-  for (int i = 0; i < a.n; ++i) {
-    unsigned int cnt[NUM_STATS] = {0};
-    const Node d{a, i, cnt};
-    phase1a(d, *a.knob_mig, *a.knob_mig_thr, *a.knob_central);
-    phase1b(d, *a.knob_central);
-    for (int k = 0; k < NUM_STATS; ++k)
-      reinterpret_cast<unsigned int*>(a.stats)[k] += cnt[k];
-  }
-}
-}  // namespace
-extern "C" void phase1_cache_host(const Phase1Args* a) { host_all(*a); }
-"""
+SOURCE = ch.SOURCE
 
 TINY = CacheConfig(2, 2, 32, 2, 2, 64)
 #: tiny caches over a small address space, short queues and a threshold
@@ -98,24 +70,8 @@ def one_thread():
 
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
-    """The kernel's per-node code (the source up to the kernel itself),
-    compiled for the host with :data:`HOST_DRIVER` in place of the
-    kernel and its launch."""
-    d = tmp_path_factory.mktemp("cache_phase_host")
-    (d / "cuda_runtime.h").write_text(HOST_SHIM)
-    body = SOURCE[:SOURCE.index("__global__")]
-    (d / "host.cpp").write_text(body + HOST_DRIVER)
-    cxx = shutil.which("g++") or shutil.which("c++")
-    assert cxx, "the host build needs a C++ compiler"
-    proc = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC",
-                           "-I", str(d), "-o", str(d / "host.so"),
-                           str(d / "host.cpp")],
-                          capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr
-    lib = ctypes.CDLL(str(d / "host.so"))
-    lib.phase1_cache_host.argtypes = [ctypes.POINTER(cache_phase._Phase1Args)]
-    lib.phase1_cache_host.restype = None
-    return lib
+    """The kernel's per-node code compiled for the host."""
+    return ch.build_host(tmp_path_factory.mktemp("cache_phase_host"))
 
 
 def stress_trace(cfg, seed=5, m=200):
@@ -238,36 +194,37 @@ def test_copied_constants_match_the_package():
     assert 1 << 30 == cache.BIG and "1u << 30" in SOURCE
 
 
-def test_in_place_cycle_on_the_cpu_runs_the_torch_phases(monkeypatch):
-    """``sim._cycle`` with ``in_place`` on the CPU calls ``phase1a`` and
-    ``phase1b`` (by their names in ``sim``, as the benchmark wraps them)
-    and never the kernel's wrapper; the bytes the kernel's wrapper would
-    count a cycle are what ``cache.put`` counts there."""
+def test_in_place_cycle_on_the_cpu_runs_the_torch_phases(host_kernel,
+                                                        monkeypatch):
+    """``sim._cycle`` with ``in_place`` calls the kernel's wrapper
+    (``cache_phase.phase1_cache_cuda``, by attribute) once a cycle under
+    a ``phase1`` span, and neither ``phase1a`` nor ``phase1b`` (by their
+    names in ``sim``, as the benchmark wraps them); on a CPU state it
+    raises through the wrapper, and with the host build standing in it
+    steps the state in place."""
     cfg = HOST_CASES["home-packed-depth4"]
     s = init_state(cfg, stress_trace(cfg, m=16), "cpu")
     geo = geometry_to(make_geometry(cfg.rows, cfg.cols), "cpu")
     ctx = make_node_ctx(cfg, "cpu")
-    called = []
     for k in ("phase1a", "phase1b"):
-        fn = getattr(sim, k)
-        monkeypatch.setattr(sim, k, lambda *a, _k=k, _fn=fn:
-                            called.append(_k) or _fn(*a))
-
-    def refuse(*a):
-        raise AssertionError("the kernel's wrapper ran on the CPU")
-    monkeypatch.setattr(cache_phase, "phase1_cache_cuda", refuse)
+        monkeypatch.setattr(sim, k, lambda *a, _k=k: pytest.fail(
+            f"the in-place cycle ran {_k}"))
+    with torch.inference_mode(), pytest.raises(ValueError,
+                                               match="needs CUDA tensors"):
+        sim._cycle(s, cfg, geo, ctx, in_place=True)
     before = cache_phase.LAUNCHES.n
     tracing.RECORDER.drain()
     tracing.RECORDER.start()
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), ch.standing_in(host_kernel):
             for _ in range(3):
-                assert sim._cycle(s, cfg, geo, ctx, in_place=True) is not None
+                out = sim._cycle(s, cfg, geo, ctx, in_place=True)
+                assert all(x is y for x, y in zip(out, s))
     finally:
         tracing.RECORDER.stop()
-    spans, counters = tracing.RECORDER.drain()
-    assert called == ["phase1a", "phase1b"] * 3
-    assert cache_phase.LAUNCHES.n == before
-    assert "phase1" not in {sp.name for sp in spans}
-    w = widen_state(s, CACHE_LEAVES)
-    assert counters["cache_write_bytes"] == 3 * cache_phase.write_bytes(w)
+    spans, _ = tracing.RECORDER.drain()
+    assert cache_phase.LAUNCHES.n == before + 3
+    names = collections.Counter(sp.name for sp in spans)
+    assert names["phase1"] == 3
+    assert names["phase1a"] == names["phase1b"] == 0
+    assert int(s.cycle) == 3

@@ -10,9 +10,10 @@ of ``_drive`` equal those of stepping each scenario alone through
 boundaries and monitor edges; no leaf moves; no output leaf of a cycle
 shares memory with another input leaf; and on the CPU nothing is
 captured or replayed.  The cycle a CUDA graph captures
-(``sim._cycle`` with ``in_place``), driven here on the CPU in place of
-the pure step, equals it too, and reads and writes no whole L1 or L2
-array."""
+(``sim._cycle`` with ``in_place``: the cache-phase kernel, here its host
+build, ``tests/torch_cache_host.py``), driven on the CPU in place of the
+pure step, equals it too, in every statistic, abort record and leaf, and
+reads and writes no whole L1 or L2 array."""
 import collections
 import functools
 
@@ -20,13 +21,14 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.core import cache, sim, sweep
+from repro_torch.core import sim, sweep
 from repro_torch.core.config import CacheConfig, SimConfig
 from repro_torch.core.state import (CACHE_LEAVES, STAT_NAMES, SimState,
                                     init_state, leaf_dtypes, narrow_state,
                                     stats_totals)
 from repro_torch.core.workloads import resolve_trace
 
+import torch_cache_host as ch
 import torch_drive_eager as de
 
 
@@ -190,51 +192,55 @@ class Watch(TorchDispatchMode):
 
 
 #: cycles run under :class:`Watch` (it costs ~50 us an operation here):
-#: the phases issue the same operations every cycle, whatever the data
+#: the cycle issues the same operations every cycle, whatever the data
 WATCHED = range(0, 200, 20)
 
 
-@functools.lru_cache(maxsize=None)
-def tiny_in_place():
-    """The TINY case driven in place, the cycles of WATCHED watched, and
-    every entry each cycle wrote where its row's mask held, as ``(leaf,
-    cycle, node, set, way, old value, new value)``."""
-    watches, rows = [], []
-    real = cache.put
-    cycle = 0
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """The cache-phase kernel's per-node code compiled for the host."""
+    return ch.build_host(tmp_path_factory.mktemp("cache_phase_host"))
 
-    def put(t, idx, mask, val):
-        if not isinstance(t, cache.Stored):       # the pure steps
-            return real(t, idx, mask, val)
-        old = t.t[idx].to(torch.int32)
-        out = real(t, idx, mask, val)
-        rows.append((t.name, cycle, torch.stack(
-            [*idx, old, t.t[idx].to(torch.int32)])[:, mask]))
-        return out
+
+def drive_in_place(lib, cfg, scenarios, cycles, chunk, cycle=de.in_place):
+    """:func:`de.drive` with ``cycle`` (the in-place cycle) in place of
+    the pure step and the host build ``lib`` in place of the kernel's
+    wrapper."""
+    with ch.standing_in(lib):
+        return de.drive(cfg, scenarios, cycles, chunk, "cpu", cycle=cycle)
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_in_place(lib):
+    """The TINY case driven in place, the cycles of WATCHED watched, and
+    the entries of ``l1_tag`` and ``l2_tag`` each cycle replaced by
+    another block, by array."""
+    watches = []
+    evicted = collections.Counter()
+    cycle = 0
 
     def step(x, cfg, geo, ctx):
         nonlocal cycle
+        tags = {k: getattr(x, k).clone() for k in ("l1_tag", "l2_tag")}
         if cycle in WATCHED:
             with Watch([getattr(x, k) for k in CACHE_LEAVES]) as w:
                 out = de.in_place(x, cfg, geo, ctx)
             watches.append(w)
         else:
             out = de.in_place(x, cfg, geo, ctx)
+        for k, old in tags.items():
+            new = getattr(x, k)
+            evicted[k] += int(((old >= 0) & (new >= 0) & (old != new)).sum())
         cycle += 1
         return out
-    cache.put = put
-    try:
-        d = de.drive(TINY, [("matmul", 3, 64, {})], 200, 8, "cpu",
-                     cycle=step)
-    finally:
-        cache.put = real
-    return d, watches, [(k, c, *r) for k, c, e in rows
-                        for r in e.t().tolist()]
+    d = drive_in_place(lib, TINY, [("matmul", 3, 64, {})], 200, 8,
+                       cycle=step)
+    return d, watches, evicted
 
 
-def test_in_place_cycle_equals_the_pure_step_where_caches_evict():
-    d, _, rows = tiny_in_place()
-    assert d.steps == 200
+def test_in_place_cycle_equals_the_pure_step_where_caches_evict(host_kernel):
+    d, _, evicted = tiny_in_place(host_kernel)
+    assert d.steps == 200 and d.cache_launches == d.steps
     got = sim.stats_list(d.out, d.aux)
     assert got == [w for w, _, _ in d.want]
     assert d.records() == [r for _, r, _ in d.want]
@@ -242,19 +248,26 @@ def test_in_place_cycle_equals_the_pure_step_where_caches_evict():
     st = got[0]
     assert st["l2_local_hits"] and st["migrations"] and st["l1_hits"]
     assert st["wb_sent"] + st["wb_miss"]          # L1 victims
-    evicted = collections.Counter(
-        k for k, _, _, _, _, old, new in rows
-        if k in ("l1_tag", "l2_tag") and 0 <= old != new >= 0)
     assert evicted["l1_tag"] and evicted["l2_tag"]
-    # two writes of one cycle into one entry of one node, in order
-    seen = collections.Counter(r[:5] for r in rows)
-    assert max(seen.values()) >= 2
 
 
-def test_in_place_cycle_touches_no_whole_cache_array():
-    d, watches, _ = tiny_in_place()
+def test_in_place_cycle_touches_no_whole_cache_array(host_kernel):
+    d, watches, _ = tiny_in_place(host_kernel)
     assert len(watches) == len(WATCHED)
     assert all(w.bad == [] for w in watches)
-    assert d.counters["cache_write_bytes"] == d.steps * \
-        de.in_place_write_bytes(TINY, d.state.trace.shape[-1])
-    assert "cache_cast_bytes" not in d.counters
+
+
+@pytest.mark.parametrize("name", ["solo-livelock", "sweep3",
+                                  "solo-16x16-saturation"])
+def test_in_place_drive_equals_the_pure_step(host_kernel, name):
+    """``_drive`` stepping every scenario with the in-place cycle, the
+    kernel's host build as its phase 1, equals each scenario's pure
+    steps: statistics, abort records and every leaf."""
+    kw, scenarios, cycles, chunk, abort = CASES[name]
+    d = drive_in_place(host_kernel, SimConfig(**kw), scenarios, cycles,
+                       chunk)
+    assert d.cache_launches == len(scenarios) * d.steps
+    assert sim.stats_list(d.out, d.aux) == [w for w, _, _ in d.want]
+    assert d.records() == [r for _, r, _ in d.want]
+    assert d.records()[0][0] == abort
+    assert d.unequal_leaves() == []

@@ -268,11 +268,12 @@ def test_execute_plan_equals_solo_runs_and_the_reference():
 
 
 def test_multi_device_runners_are_not_ported_yet(monkeypatch):
-    """The spatial and composed runners are ported (ROADMAP item 5,
-    ``tests/test_torch_composed.py`` runs them on ranks): outside a
-    process group of enough ranks they refuse the bucket, naming the
-    ranks it needs, unless ``execute_plan`` degrades it to the sweep
-    backend first, as it does whenever the group is too small."""
+    """The spatial and composed runners are ported
+    (``repro_torch.core.sharded``; ``tests/test_torch_composed.py`` runs
+    them on ranks): outside a process group of enough ranks they refuse
+    the bucket, naming the ranks it needs, unless ``execute_plan``
+    degrades it to the sweep backend first, as it does whenever the group
+    is too small."""
     _, tscs = both(dict(rows=4, cols=4, centralized_directory=False),
                    [(None, None, "matmul", 0, 4, {})])
     plan = tengine.compile_plan(tscs, ndev=4, force_backend="sharded")

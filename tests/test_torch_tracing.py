@@ -12,9 +12,6 @@ import torch
 from repro_torch import tracing
 from repro_torch.core import sim, sweep
 from repro_torch.core.config import SimConfig
-from repro_torch.core.state import (CACHE_LEAVES, geometry_to, init_state,
-                                    leaf_dtypes, make_geometry,
-                                    make_node_ctx)
 from repro_torch.core.workloads import resolve_trace
 from repro_torch.kernels import build, flash_attention, router_phase
 from repro_torch.tracing import Recorder, Span, innermost, self_ns
@@ -96,21 +93,6 @@ def test_counters_add_while_on_and_drain_empties():
     rec.stop()
     rec.count("host_syncs")
     assert rec.drain() == ([], {})
-
-
-def test_a_tally_takes_the_counts_in_place_of_the_counters():
-    rec = Recorder()
-    assert not rec.counting
-    with rec.tally() as off:            # off: kept all the same
-        assert rec.counting
-        rec.count("cache_write_bytes", 2)
-    rec.count("cache_write_bytes")      # off: dropped
-    rec.start()
-    with rec.tally() as on:             # on: not in the counters
-        rec.count("cache_write_bytes", 5)
-    rec.count("cache_write_bytes")
-    assert off == {"cache_write_bytes": 2} and on == {"cache_write_bytes": 5}
-    assert rec.drain()[1] == {"cache_write_bytes": 1}
 
 
 def test_spans_open_across_a_switch_are_dropped():
@@ -201,36 +183,3 @@ def test_run_sweep_emits_the_drivers_spans_with_equal_statistics(recorder):
     assert on == off
     _check_driver_spans(spans, counters, 2, 12)
     assert counters["host_syncs"] == 1 + 3
-
-
-def test_cache_counters_equal_their_reckoning(recorder):
-    """A pure cycle copies each L1 and L2 array it writes whole, as int32,
-    and casts each narrow one whole on entry and exit; a cycle stepped in
-    place writes one entry a node, in the storage dtype, and casts none;
-    the CPU driver's write-back copies all eight whole after each pure
-    cycle."""
-    import torch_drive_eager as de
-    cfg = SimConfig(rows=8, cols=8, state_dtype_policy="packed")
-    trace = resolve_trace(cfg, "matmul", 8, 3)
-    s = init_state(cfg, trace, "cpu")
-    geo = geometry_to(make_geometry(8, 8), "cpu")
-    ctx = make_node_ctx(cfg, "cpu")
-    dt = leaf_dtypes(cfg, trace.shape[-1])
-    size = {k: getattr(s, k).numel() for k in CACHE_LEAVES}
-    narrow = [k for k in CACHE_LEAVES if dt[k] != torch.int32]
-    assert narrow and len(narrow) < len(CACHE_LEAVES)
-    pure = {"cache_write_bytes": sum(n * size[k] * 4 for k, n in
-                                     de.CACHE_WRITES.items()),
-            "cache_cast_bytes": sum(size[k] * (4 + dt[k].itemsize)
-                                    for k in narrow)}
-    sim.cycle_step(s, cfg, geo, ctx)
-    assert recorder.drain()[1] == pure
-    sim._cycle(s, cfg, geo, ctx, in_place=True)
-    assert recorder.drain()[1] == {
-        "cache_write_bytes": de.in_place_write_bytes(cfg, trace.shape[-1])}
-    sim.run(cfg, trace, max_cycles=3, device="cpu")
-    back = sum(size[k] * dt[k].itemsize for k in CACHE_LEAVES)
-    counters = recorder.drain()[1]
-    assert {k: counters[k] for k in pure} == {
-        "cache_write_bytes": 3 * pure["cache_write_bytes"],
-        "cache_cast_bytes": 3 * (pure["cache_cast_bytes"] + back)}

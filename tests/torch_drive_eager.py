@@ -11,16 +11,11 @@ import torch
 from repro_torch import tracing
 from repro_torch.core import sim
 from repro_torch.core.config import ST_WAIT_DATA, ST_WAIT_DIR, SimConfig
-from repro_torch.core.state import (STAT_NAMES, SimState, init_state,
-                                    leaf_dtypes)
+from repro_torch.core.state import STAT_NAMES, SimState, init_state
 from repro_torch.core.sweep import ScenarioSpec, SweepSpec
 from repro_torch.kernels import cache_phase, router_phase
 
 PROGRESS = [k for k in STAT_NAMES if k not in ("hops", "deflections")]
-#: the writes a cycle makes into each L1 and L2 array, whatever the
-#: traffic: the cache-phase kernel's table of the torch phases' write
-#: sites, which the CPU tests hold ``cache.put``'s counts against
-CACHE_WRITES = cache_phase.WRITE_SITES
 DIAG_KEYS = ("circulating_flits", "wait_dir_nodes", "wait_data_nodes",
              "stalled_queues", "flits_to_node0")
 
@@ -103,20 +98,13 @@ class Driven(NamedTuple):
                 if u.dtype != v.dtype or not torch.equal(u, v)]
 
 
-def in_place_write_bytes(cfg: SimConfig, trace_len: int) -> int:
-    """``cache_write_bytes`` of one cycle stepped in place: each write
-    covers one entry a node, in its array's storage dtype."""
-    dt = leaf_dtypes(cfg, trace_len)
-    return sum(n * cfg.num_nodes * dt[k].itemsize
-               for k, n in CACHE_WRITES.items())
-
-
 def in_place(x: SimState, cfg: SimConfig, geo, ctx) -> SimState:
     """A ``cycle_step`` that steps ``x`` in place, as a CUDA graph's
     capture does (``sim._cycle`` with ``in_place``), and returns it: in
     place of the pure step, it has ``_drive`` on the CPU step every
-    scenario in place, and the driver's write-back then finds nothing to
-    copy."""
+    scenario in place (with the cache-phase kernel's host build standing
+    in for its wrapper, ``tests/torch_cache_host.py``), and the driver's
+    write-back then finds nothing to copy."""
     return sim._cycle(x, cfg, geo, ctx, in_place=True)
 
 
